@@ -1,0 +1,165 @@
+"""Core NN bricks: PReLU, BatchNorm, Norm2d, ConvModule, BasicBlock.
+
+Counterpart of ``lednet_tpu/models/layers.py``.  Modules here take and return
+NCHW tensors (torch's layout); submodule and parameter names follow the flax
+module tree (``conv``, ``norm.bn``, ``act.alpha``), so that
+:mod:`lednet_tpu_torch.convert` maps a flax checkpoint onto them by name.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from lednet_tpu_torch.ops.kernels.sesp_pyramid import bn_fold
+
+
+class PReLU(nn.Module):
+    """Per-channel PReLU, ``where(x >= 0, x, alpha * x)``."""
+
+    def __init__(self, num_parameters: int):
+        super().__init__()
+        self.alpha = nn.Parameter(torch.full((num_parameters,), 0.25))
+
+    def forward(self, x):
+        return torch.where(x >= 0, x, self.alpha.view(1, -1, 1, 1) * x)
+
+
+def build_activation(act_cfg: Optional[Dict]) -> nn.Module:
+    """mmcv ``build_activation_layer`` for the activation LED-Net's configs
+    use (ReLU); ``act_cfg=None`` means identity."""
+    if act_cfg is None:
+        return nn.Identity()
+    if act_cfg['type'] != 'ReLU':
+        raise ValueError(f"Unsupported activation in the port: {act_cfg['type']}")
+    return nn.ReLU()
+
+
+class BatchNorm(nn.BatchNorm2d):
+    """BatchNorm2d.  torch updates ``running_var`` with the unbiased batch
+    variance, which is the semantics ``lednet_tpu``'s own BatchNorm exists to
+    reproduce; eval mode normalizes with the running stats."""
+
+
+class Norm2d(nn.Module):
+    """Normalization selected by an mmseg ``norm_cfg``.  ``SyncBN`` is
+    BatchNorm on one card."""
+
+    def __init__(self, norm_cfg: Optional[Dict], channels: int):
+        super().__init__()
+        cfg = norm_cfg or dict(type='BN')
+        norm_type = cfg.get('type', 'BN')
+        if norm_type not in ('BN', 'SyncBN', 'BN2d'):
+            raise ValueError(f'Unsupported norm type in the port: {norm_type}')
+        self.bn = BatchNorm(channels, eps=cfg.get('eps', 1e-5),
+                            momentum=cfg.get('momentum', 0.1))
+
+    def forward(self, x):
+        return self.bn(x)
+
+
+class ConvModule(nn.Module):
+    """conv + norm + act with a configurable ``order``."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 stride: int = 1, padding: int = 0,
+                 norm_cfg: Optional[Dict] = None, act_cfg: Optional[Dict] = None,
+                 order: Tuple[str, ...] = ('conv', 'norm', 'act')):
+        super().__init__()
+        self.order = tuple(order)
+        self.conv = nn.Conv2d(in_channels, out_channels, kernel_size, stride,
+                              padding, bias=norm_cfg is None)
+        norm_after_conv = self.order.index('norm') > self.order.index('conv')
+        self.norm = (Norm2d(norm_cfg, out_channels if norm_after_conv
+                            else in_channels) if norm_cfg is not None else None)
+        self.act = build_activation(act_cfg)
+
+    def forward(self, x):
+        for layer in self.order:
+            if layer == 'conv':
+                x = self.conv(x)
+            elif layer == 'norm' and self.norm is not None:
+                x = self.norm(x)
+            elif layer == 'act':
+                x = self.act(x)
+        return x
+
+
+class BasicBlock(nn.Module):
+    """ResNet basic block."""
+
+    def __init__(self, in_channels: int, channels: int, stride: int = 1,
+                 downsample: bool = False, norm_cfg: Optional[Dict] = None,
+                 act_out: bool = True):
+        super().__init__()
+        norm_cfg = norm_cfg or dict(type='BN')
+        self.act_out = act_out
+        self.conv1 = ConvModule(in_channels, channels, 3, stride=stride,
+                                padding=1, norm_cfg=norm_cfg,
+                                act_cfg=dict(type='ReLU'))
+        self.conv2 = ConvModule(channels, channels, 3, padding=1,
+                                norm_cfg=norm_cfg, act_cfg=None)
+        if downsample:
+            self.downsample_conv = nn.Conv2d(in_channels, channels, 1,
+                                             stride, bias=False)
+            self.downsample_norm = Norm2d(norm_cfg, channels)
+        else:
+            self.downsample_conv = None
+
+    def forward(self, x):
+        out = self.conv2(self.conv1(x))
+        if self.downsample_conv is not None:
+            x = self.downsample_norm(self.downsample_conv(x))
+        out = out + x
+        return F.relu(out) if self.act_out else out
+
+
+def fold_bn(bn: nn.BatchNorm2d) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Eval-mode BatchNorm of a module as a per-channel (scale, bias) pair."""
+    return bn_fold(bn.weight, bn.bias, bn.running_mean, bn.running_var, bn.eps)
+
+
+def fold_conv_bn(conv: nn.Conv2d, norm: Norm2d) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A bias-free conv followed by eval BatchNorm as one conv: (weight, bias)."""
+    scale, bias = fold_bn(norm.bn)
+    return conv.weight * scale.view(-1, 1, 1, 1), bias
+
+
+def _normal_(t: torch.Tensor, std: float, generator: torch.Generator) -> None:
+    t.copy_(torch.randn(t.shape, generator=generator) * std)
+
+
+@torch.no_grad()
+def init_weights(module: nn.Module, generator: torch.Generator) -> None:
+    """Seeded initialisation matching the JAX package's initialisers: conv
+    kernels kaiming-normal (fan_out, relu gain), conv biases 0, BatchNorm
+    scale 1 / bias 0 / running mean 0 / var 1, PReLU 0.25, relative-position
+    tables normal(0.02) clipped at two standard deviations.  Every parameter is overwritten, so the
+    result depends on ``generator`` alone."""
+    done = set()
+    for mod in module.modules():
+        for name, p in mod.named_parameters(recurse=False):
+            if isinstance(mod, nn.Conv2d) and name == 'bias':
+                p.zero_()
+            elif isinstance(mod, nn.BatchNorm2d):
+                p.fill_(1.0 if name == 'weight' else 0.0)
+            elif isinstance(mod, PReLU):
+                p.fill_(0.25)
+            elif name == 'relative_position_bias_table':
+                p.copy_(torch.clamp(torch.randn(p.shape, generator=generator),
+                                    -2.0, 2.0) * 0.02)
+            elif p.dim() == 4:       # conv kernels and raw depthwise kernels
+                fan_out = p.shape[0] * p.shape[2] * p.shape[3]
+                _normal_(p, math.sqrt(2.0 / fan_out), generator)
+            else:
+                raise ValueError(f'no initialiser for {type(mod).__name__}.{name}')
+            done.add(id(p))
+        if isinstance(mod, nn.BatchNorm2d):
+            mod.running_mean.zero_()
+            mod.running_var.fill_(1.0)
+    missing = [n for n, p in module.named_parameters() if id(p) not in done]
+    if missing:
+        raise ValueError(f'parameters left uninitialised: {missing}')

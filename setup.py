@@ -6,12 +6,14 @@ setup(
     description='TPU-native (JAX/XLA/Pallas/pjit) real-time semantic '
                 'segmentation framework with the capabilities of '
                 'ly27253/LED-Net',
-    packages=find_packages(include=['lednet_tpu', 'lednet_tpu.*']),
+    packages=find_packages(include=['lednet_tpu', 'lednet_tpu.*',
+                                    'lednet_tpu_torch', 'lednet_tpu_torch.*']),
     python_requires='>=3.10',
     install_requires=[
         'jax', 'flax', 'optax', 'orbax-checkpoint', 'numpy',
         'opencv-python', 'pillow',
     ],
     include_package_data=True,
-    package_data={'lednet_tpu': ['native/*.cpp', 'models/text_encoder/data/*.gz']},
+    package_data={'lednet_tpu': ['native/*.cpp', 'models/text_encoder/data/*.gz'],
+                  'lednet_tpu_torch': ['csrc/*.cu', 'csrc/*.cuh']},
 )
