@@ -16,13 +16,20 @@ printing one flushed line with its seconds:
    call is re-run through the kernel and through its plain PyTorch version on
    the same inputs and held to max|kernel - plain| <= TOL * max|plain|
    (normalization: bit-exact);
+3b. pyramid: kernel E (``sesp_pyramid``), which no model calls, at each
+   distinct pyramid shape of the SESP calls recorded in phase 3 (n, H, W,
+   rates, stride; their dw1/dw2 and a seeded random reduced map), with the
+   v2 stage and without, held to its plain version like phase 3;
 4. model: launch counts set to 0, ``inference_model`` on 4 seeded
    1024x1024 BGR uint8 images through the kernels, counts read (every kernel
-   must have launched), then the same images with ``impl='plain'`` (module
-   forms) and a 256x256 image against the model copied to the CPU;
+   of the main path, A-D, must have launched; E is on no path and is not
+   required), then the same images with ``impl='plain'`` (module forms) and
+   a 256x256 image against the model copied to the CPU;
 5. timing: CUDA-event time of the kernel-path forward (preprocess +
    predict, bs=1, 5 warm-up + 50 timed), the plain path's, and each kernel's
-   and plain version's time per launch at the main path's inputs.
+   and plain version's time per launch at the main path's inputs (E's at
+   phase 3b's inputs); kernel D's time is printed per call site and beside
+   the earlier three-launch design's.
 
 It prints the card line and a ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the package
@@ -57,7 +64,13 @@ KERNEL_INFO = {   # name -> (CUDA source, TPU kernel it replaces)
                    'lednet_tpu/ops/pallas/conv_block.py:73'),
     'sesp_block': ('lednet_tpu_torch/csrc/sesp_block.cu',
                    'lednet_tpu/ops/pallas/sesp_pyramid.py:207'),
+    'sesp_pyramid': ('lednet_tpu_torch/csrc/sesp_pyramid.cu',
+                     'lednet_tpu/ops/pallas/sesp_pyramid.py:79'),
 }
+OFF_PATH = ('sesp_pyramid',)   # kernels that no model calls
+# kernel D's mean ms per call before it was fused (three launches per call),
+# measured by this script in three runs on an NVIDIA H100 80GB HBM3 at 700 W
+EARLIER_SESP_MS = (0.1155, 0.1265, 0.1262)
 
 
 class PhaseError(RuntimeError):
@@ -162,6 +175,15 @@ def work(name, args, kw):
         flops = B * (2 * H * W * n * cin + h2 * w2 * (18 * C + C)
                      + (18 * C if v2 else 0) * h2 * w2 + 2 * C * C * h2 * w2)
         return sum(nb(t) for t in tensors) + 4 * B * C * h2 * w2, flops
+    if name == 'sesp_pyramid':
+        red, dw1, dw2 = args[:3]
+        B, n, H, W = red.shape
+        C = dw1.shape[0] * n
+        stride = kw.get('stride', 1)
+        h2, w2 = -(-H // stride), -(-W // stride)
+        stages = 1 if dw2 is None else 2
+        return (sum(nb(t) for t in tensors) + 4 * B * C * h2 * w2,
+                B * (18 * C * stages + C) * h2 * w2)
     raise ValueError(name)
 
 
@@ -253,9 +275,41 @@ def main() -> int:
                     raise AssertionError(f'{name} {shape_of(args)} disagrees '
                                          f'with its plain version')
                 errs[name].append(e_abs)
-        missing = [n for n, e in errs.items() if not e]
+        missing = [n for n, e in errs.items() if not e and n not in OFF_PATH]
         if missing:
             raise AssertionError(f'the main path called no {missing}')
+
+    with phase('3b pyramid'):
+        from lednet_tpu_torch.ops.kernels import sesp_pyramid
+        shapes = {}
+        for name, op, args, kw in calls:
+            if name == 'sesp_block':
+                x, dw1, dw2 = args[0], args[4], args[5]
+                key = (dw1.shape[1], *x.shape[2:], tuple(kw['rates']),
+                       kw['stride'])
+                shapes.setdefault(key, (x.shape[0], dw1, dw2))
+        pyr_calls = []
+        for (n, H, W, rates, stride), (B, dw1, dw2) in shapes.items():
+            red = torch.randn((B, n, H, W), generator=gen).cuda()
+            for d2 in (dw2, None):
+                pyr_calls.append(('sesp_pyramid', sesp_pyramid,
+                                  (red, dw1, d2, rates), {'stride': stride}))
+        for name, op, args, kw in pyr_calls:
+            with torch.inference_mode():
+                got = op(*args, **dict(kw, impl='cuda'))
+                torch.cuda.synchronize()
+                ref = op(*args, **dict(kw, impl='plain'))
+                torch.cuda.synchronize()
+            if got.shape != ref.shape:
+                raise AssertionError(f'{name}: {got.shape} vs {ref.shape}')
+            e_rel, e_abs = rel(got, ref), (got.double() - ref.double()).abs().max().item()
+            say(f'  {name} {shape_of(args)} rates {args[3]} stride '
+                f'{kw["stride"]} v2 {args[2] is not None}: max_abs {e_abs:.3e} '
+                f'rel {e_rel:.3e} (tol {TOL_KERNEL:g})')
+            if not e_rel <= TOL_KERNEL:
+                raise AssertionError(f'{name} {shape_of(args)} disagrees '
+                                     f'with its plain version')
+            errs[name].append(e_abs)
 
     with phase('4 model'):
         kernels.reset_launch_counts()
@@ -263,7 +317,7 @@ def main() -> int:
         torch.cuda.synchronize()
         launches = kernels.launch_counts()
         say(f'  launches in {N_IMAGES} forwards: {launches}')
-        if not all(launches.values()):
+        if not all(c for n, c in launches.items() if n not in OFF_PATH):
             raise AssertionError(f'a kernel never launched: {launches}')
         plain = inference_model(model, imgs, impl='plain')
         for i, (a, b) in enumerate(zip(res, plain)):
@@ -304,17 +358,23 @@ def main() -> int:
             f'({1000 / plain_fwd_ms:.1f} img/s)')
         rows = []
         for name, (source, replaces) in KERNEL_INFO.items():
-            mine = [(op, args, kw) for n, op, args, kw in calls if n == name]
+            mine = [(op, args, kw) for n, op, args, kw in calls + pyr_calls
+                    if n == name]
             ms = plain_ms = bound = 0.0
             bound_by = {'bytes': 0.0, 'operations': 0.0}
             with torch.inference_mode():
                 for op, args, kw in mine:
-                    ms += cuda_ms(lambda: op(*args, **dict(kw, impl='cuda')), 20)
-                    plain_ms += cuda_ms(lambda: op(*args, **dict(kw, impl='plain')), 20)
+                    t = cuda_ms(lambda: op(*args, **dict(kw, impl='cuda')), 20)
+                    t_plain = cuda_ms(lambda: op(*args, **dict(kw, impl='plain')), 20)
                     nbytes, flops = work(name, args, kw)
                     tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
-                    bound += max(tb, tf)
+                    ms, plain_ms, bound = ms + t, plain_ms + t_plain, bound + max(tb, tf)
                     bound_by['bytes' if tb >= tf else 'operations'] += max(tb, tf)
+                    if name in ('sesp_block', 'sesp_pyramid'):
+                        rates = kw['rates'] if name == 'sesp_block' else args[3]
+                        say(f'    {name} {shape_of(args)} rates {tuple(rates)} '
+                            f'stride {kw["stride"]}: {t:.4f} ms, bound '
+                            f'{max(tb, tf):.4f} ms, plain {t_plain:.4f} ms')
             k = len(mine)
             rows.append(dict(
                 name=name, route='cuda', source=source, replaces=replaces,
@@ -324,6 +384,10 @@ def main() -> int:
             say(f'  {name}: {ms / k:.4f} ms/launch, {launches[name] / N_IMAGES:g} '
                 f'launches/forward, bound {bound / k:.4f} ms '
                 f'({rows[-1]["bound_by"]}), plain {plain_ms / k:.4f} ms')
+            if name == 'sesp_block':
+                say(f'  sesp_block before it was fused (three launches per '
+                    f'call, same card type): '
+                    f'{" / ".join(f"{t:.4f}" for t in EARLIER_SESP_MS)} ms/launch')
 
     say(card)
     say(json.dumps({'kernels': rows}))

@@ -8,10 +8,11 @@ SEAM injection), and a final stage with SESP context pooling.  Returns
 
 In eval mode on CUDA the stem runs kernel B (stem_conv1, stem_conv2) and
 kernel C (stem_block1, stem_block2 and the trailing ReLU) with BatchNorm
-folded, and every SESP block runs kernel D.  The TPU reparameterizations of
-the JAX package (the space-to-depth stem ``_stem_s2d``, the packed
-``_stem_block3_packed``) are not carried over: the port runs the module forms
-they rewrite.
+folded, and every SESP block runs kernel D; the stem's folded weights are
+cached until a parameter or running stat of the stem changes.  The TPU
+reparameterizations of the JAX package (the space-to-depth stem
+``_stem_s2d``, the packed ``_stem_block3_packed``) are not carried over: the
+port runs the module forms they rewrite.
 """
 from __future__ import annotations
 
@@ -24,7 +25,9 @@ import torch.nn.functional as F
 from lednet_tpu_torch.models.aff import MutiAFF
 from lednet_tpu_torch.models.espnet import CESPB, SESP
 from lednet_tpu_torch.models.getb import GETBBlock
-from lednet_tpu_torch.models.layers import BasicBlock, ConvModule, fold_conv_bn
+from lednet_tpu_torch.models.layers import (BasicBlock, ConvModule,
+                                           cached_operands, fold_conv_bn,
+                                           module_tensors)
 from lednet_tpu_torch.models.seam import SEAM
 from lednet_tpu_torch.ops.kernels import basic_pair, stem_convs
 from lednet_tpu_torch.ops.kernels._build import resolve_impl
@@ -83,17 +86,24 @@ class LEDNet(nn.Module):
         """Eval stem through kernels B and C with BatchNorm folded (their
         plain versions with ``impl='plain'``): returns x1 (1/2), x2 (1/4)
         and the stem blocks' output at 1/4."""
+        w1, b1, w2, b2, ws, bs = cached_operands(
+            self, module_tensors(self.stem_conv1, self.stem_conv2,
+                                 self.stem_block1, self.stem_block2),
+            self._fold_stem)
+        x1, x2 = stem_convs(x, w1, b1, w2, b2, impl=impl)
+        return x1, x2, basic_pair(x2, ws, bs, impl=impl)
+
+    def _fold_stem(self):
+        """Kernel B's and C's operands: (w1, b1, w2, b2, ws, bs)."""
         w1, b1 = fold_conv_bn(self.stem_conv1.conv, self.stem_conv1.norm)
         w2, b2 = fold_conv_bn(self.stem_conv2.conv, self.stem_conv2.norm)
-        x1, x2 = stem_convs(x, w1, b1, w2, b2, impl=impl)
         ws, bs = [], []
         for blk in (self.stem_block1, self.stem_block2):
             for cv in (blk.conv1, blk.conv2):
                 w, b = fold_conv_bn(cv.conv, cv.norm)
                 ws.append(w)
                 bs.append(b)
-        return x1, x2, basic_pair(x2, torch.stack(ws), torch.stack(bs),
-                                  impl=impl)
+        return w1, b1, w2, b2, torch.stack(ws), torch.stack(bs)
 
     def forward(self, x, impl: Optional[str] = None):
         """x: (B, 3, H, W) float32 or bfloat16 (promoted to float32)."""

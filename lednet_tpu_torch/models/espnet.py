@@ -9,7 +9,8 @@ Counterpart of ``lednet_tpu/models/espnet.py`` (NCHW here):
   tail; a stride-2 context block adds an avg-pooled input shortcut.
 - In eval mode on CUDA a block runs as kernel D
   (:func:`lednet_tpu_torch.ops.kernels.sesp_block`) with its BatchNorms
-  folded; ``impl='plain'`` and training run the module form.
+  folded; the folded operands are cached on the block until a parameter or
+  running stat changes.  ``impl='plain'`` and training run the module form.
 
 The ``tiny_dense`` and ``fuse_branches`` reparameterizations of the JAX
 package are TPU layout choices and are not carried over.
@@ -22,7 +23,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from lednet_tpu_torch.models.layers import Norm2d, PReLU, fold_bn
+from lednet_tpu_torch.models.layers import (Norm2d, PReLU, cached_operands,
+                                           fold_bn, module_tensors)
 from lednet_tpu_torch.ops.kernels._build import resolve_impl
 from lednet_tpu_torch.ops.kernels.sesp_pyramid import dense_grouped, sesp_block
 from lednet_tpu_torch.ops.pool import avg_pool2d
@@ -132,25 +134,34 @@ class SESP(nn.Module):
     def kernel_forward(self, x, impl: Optional[str] = None):
         """Eval path through kernel D with the BatchNorms folded (the plain
         version of the kernel with ``impl='plain'``)."""
+        if self.module_act is None:
+            tail = 'plain'
+        elif self.stride == 1 and self.in_channels == self.out_channels:
+            tail = 'residual'
+        else:
+            tail = 'act'
+        operands = cached_operands(self, module_tensors(self),
+                                   self._fold_operands)
+        out = sesp_block(x, *operands, rates=self.rates, stride=self.stride,
+                         tail=tail, impl=impl)
+        if self.avg_shortcut:
+            out = out + avg_pool2d(x, 3, 2, 1)
+        return out
+
+    def _fold_operands(self):
+        """Kernel D's operands: (wred, bred, a1, dw1, dw2, s2, b2, a2, wexp,
+        bexp, a3)."""
         s1, b1 = fold_bn(self.proj_1x1.norm.bn)
         wred = dense_grouped(self.proj_1x1.conv.weight, self.k) * s1[:, None]
         s2, b2 = fold_bn(self.br_after_cat_norm.bn)
         s3, b3 = fold_bn(self.conv_1x1_exp.norm.bn)
         wexp = dense_grouped(self.conv_1x1_exp.conv.weight, self.k) * s3[:, None]
-        if self.module_act is None:
-            tail, a3 = 'plain', torch.zeros_like(b3)
-        else:
-            residual = self.stride == 1 and self.in_channels == self.out_channels
-            tail, a3 = ('residual' if residual else 'act'), self.module_act.alpha
+        a3 = (torch.zeros_like(b3) if self.module_act is None
+              else self.module_act.alpha)
         dw1 = torch.stack([self._dw('spp_dw', i)[:, 0] for i in range(self.k)])
         dw2 = torch.stack([self._dw('spp_dw_v2_', i)[:, 0] for i in range(self.k)])
-        out = sesp_block(x, wred, b1, self.proj_1x1.act.alpha, dw1, dw2, s2, b2,
-                         self.br_after_cat_act.alpha, wexp, b3, a3,
-                         rates=self.rates, stride=self.stride, tail=tail,
-                         impl=impl)
-        if self.avg_shortcut:
-            out = out + avg_pool2d(x, 3, 2, 1)
-        return out
+        return (wred, b1, self.proj_1x1.act.alpha, dw1, dw2, s2, b2,
+                self.br_after_cat_act.alpha, wexp, b3, a3)
 
 
 class ESPDownSampler(nn.Module):

@@ -8,7 +8,7 @@ module tree (``conv``, ``norm.bn``, ``act.alpha``), so that
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -126,6 +126,28 @@ def fold_conv_bn(conv: nn.Conv2d, norm: Norm2d) -> Tuple[torch.Tensor, torch.Ten
     """A bias-free conv followed by eval BatchNorm as one conv: (weight, bias)."""
     scale, bias = fold_bn(norm.bn)
     return conv.weight * scale.view(-1, 1, 1, 1), bias
+
+
+def cached_operands(module: nn.Module, sources: Sequence[torch.Tensor],
+                    build: Callable[[], tuple]) -> tuple:
+    """``build()``, computed once and kept on ``module`` until a tensor of
+    ``sources`` changes.  The key is each source's ``_version``,
+    ``data_ptr()`` and device, so an in-place edit, ``load_state_dict``,
+    ``.to()`` or a copied module all rebuild.  Built without autograd and
+    outside inference mode; a plain attribute, so not in ``state_dict()``."""
+    key = tuple((t._version, t.data_ptr(), t.device) for t in sources)
+    hit = module.__dict__.get('_operand_cache')
+    if hit is not None and hit[0] == key:
+        return hit[1]
+    with torch.inference_mode(False), torch.no_grad():
+        value = build()
+    module._operand_cache = (key, value)
+    return value
+
+
+def module_tensors(*modules: nn.Module):
+    """Every parameter and buffer of ``modules``."""
+    return [t for m in modules for t in (*m.parameters(), *m.buffers())]
 
 
 def _normal_(t: torch.Tensor, std: float, generator: torch.Generator) -> None:

@@ -43,11 +43,9 @@ SIGNATURES = {
                                _I, _I, _P],
     'lednet_stem_conv3x3_s2': [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     'lednet_conv3x3_c32': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    'lednet_sesp_reduce': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    'lednet_sesp_pyramid': [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                            _I, _P],
-    'lednet_sesp_merge': [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                          _I, _I, _I, _I, _I, _I, _I, _P],
+    'lednet_sesp_reduce': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    'lednet_sesp_fused': [_P] * 11 + [_I] * 17 + [_P],
+    'lednet_sesp_pyramid': [_P] * 4 + [_I] * 13 + [_P],
 }
 
 

@@ -1,26 +1,41 @@
-"""Kernel D: one eval-mode SESP block, as three CUDA launches (reduce;
-pyramid + HFF; v2 + BN/PReLU + expand + tail).
+"""Kernels D and E: one eval-mode SESP block (``sesp_block``) and the SESP
+branch pyramid on its own (``sesp_pyramid``).
 
-Replaces ``lednet_tpu/ops/pallas/sesp_pyramid.py:207`` (``sesp_block``).
-Unlike that kernel's VMEM gate (``pyramid_fits`` :285) this one also takes
-stride-2 blocks wider than 128 channels (LED-Net's context3 down-sampler).
-CUDA source: ``lednet_tpu_torch/csrc/sesp_block.cu``.
+- E replaces ``lednet_tpu/ops/pallas/sesp_pyramid.py:79`` (``sesp_pyramid``);
+  CUDA source ``lednet_tpu_torch/csrc/sesp_pyramid.cu``, one launch.
+- D replaces ``sesp_pyramid.py:207`` (``sesp_block``); CUDA source
+  ``lednet_tpu_torch/csrc/sesp_block.cu``, two launches: a register-tiled
+  reduce, then one fused launch of pyramid, BatchNorm + PReLU, expand and
+  tail that keeps the pyramid map and ``y`` on chip.  Unlike the TPU
+  kernel's VMEM gate (``pyramid_fits`` :285) it also takes stride-2 blocks
+  wider than 128 channels (LED-Net's context3 down-sampler).
+
+Both share their pyramid device code (``csrc/sesp_common.cuh``), as the TPU
+kernels share ``_pyramid_body`` (:135).  Tiles, channel splits and chunk
+sizes are chosen here (:func:`fused_config`, :func:`pyramid_config`,
+:func:`reduce_config`), so the CPU tests reach them.
 
 :func:`bn_fold` and :func:`dense_grouped` are the host-side helpers that turn
-a SESP module's parameters into this kernel's operands
+a SESP module's parameters into kernel D's operands
 (``sesp_pyramid.py:279`` and :265).
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+import functools
+import math
+import weakref
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 
-from lednet_tpu_torch.ops.kernels._build import (check, library, require,
+from lednet_tpu_torch.ops.kernels._build import (check, library, ptr, require,
                                                  resolve_impl, stream_ptr)
 
 TAILS = {'plain': 0, 'act': 1, 'residual': 2}
+THREADS = 256                   # every launch of D and E
+SMEM_BYTES = 232448             # H100: shared memory one CTA may use
+SMS = 132                       # H100 streaming multiprocessors
 
 
 def bn_fold(scale, bias, mean, var, eps: float = 1e-5):
@@ -46,6 +61,26 @@ def _prelu(x, a):
     return torch.where(x >= 0, x, a.view(1, -1, 1, 1) * x)
 
 
+# ------------------------------------------------------------ plain versions
+def sesp_pyramid_plain(red, dw1, dw2, rates: Sequence[int],
+                       stride: int = 1) -> torch.Tensor:
+    """The pyramid on a (B, n, H, W) float32 map: k depthwise 3x3 branches
+    at dilations ``rates`` and ``stride``, the HFF running sum, and the v2
+    stage at dilations ``rates + 1`` unless ``dw2`` is None; dw1/dw2
+    (k, n, 3, 3).  Returns the concat (B, k*n, ceil(H/s), ceil(W/s))."""
+    n = dw1.shape[1]
+    branches = []
+    for g, d in enumerate(rates):
+        br = F.conv2d(red, dw1[g].unsqueeze(1), stride=stride, padding=d,
+                      dilation=d, groups=n)
+        branches.append(br + branches[-1] if branches else br)
+    if dw2 is not None:
+        branches = [F.conv2d(br, dw2[g].unsqueeze(1), padding=d + 1,
+                             dilation=d + 1, groups=n)
+                    for g, (br, d) in enumerate(zip(branches, rates))]
+    return torch.cat(branches, 1)
+
+
 def sesp_block_plain(x, wred, bred, a1, dw1, dw2, s2, b2, a2, wexp, bexp, a3,
                      rates: Sequence[int], stride: int = 1,
                      tail: str = 'residual') -> torch.Tensor:
@@ -56,20 +91,10 @@ def sesp_block_plain(x, wred, bred, a1, dw1, dw2, s2, b2, a2, wexp, bexp, a3,
     s2/b2/a2 (k*n,) BN scale/bias and PReLU alpha after the concat.
     wexp (C, C) dense expand weight (out, in), BN folded; bexp/a3 (C,).
     """
-    k, n = dw1.shape[0], dw1.shape[1]
     red = _prelu(torch.einsum('oi,bihw->bohw', wred, x)
                  + bred.view(1, -1, 1, 1), a1)
-    branches = []
-    for g, d in enumerate(rates):
-        br = F.conv2d(red, dw1[g].unsqueeze(1), stride=stride, padding=d,
-                      dilation=d, groups=n)
-        branches.append(br + branches[-1] if branches else br)
-    if dw2 is not None:
-        branches = [F.conv2d(br, dw2[g].unsqueeze(1), padding=d + 1,
-                             dilation=d + 1, groups=n)
-                    for g, (br, d) in enumerate(zip(branches, rates))]
-    y = _prelu(torch.cat(branches, 1) * s2.view(1, -1, 1, 1)
-               + b2.view(1, -1, 1, 1), a2)
+    pyr = sesp_pyramid_plain(red, dw1, dw2, rates, stride)
+    y = _prelu(pyr * s2.view(1, -1, 1, 1) + b2.view(1, -1, 1, 1), a2)
     z = torch.einsum('oi,bihw->bohw', wexp, y) + bexp.view(1, -1, 1, 1)
     if tail == 'residual':
         return _prelu(z + x, a3)
@@ -78,27 +103,235 @@ def sesp_block_plain(x, wred, bred, a1, dw1, dw2, s2, b2, a2, wexp, bexp, a3,
     return z
 
 
+# ------------------------------------------------------------ launch configs
+class FusedConfig(NamedTuple):
+    """One fused launch of kernel D: an output tile th x tw, oc output
+    channels per tile, red channels in chunks of jc, split over a cluster of
+    cs CTAs, ppt pixels x 4 output channels per thread."""
+    th: int
+    tw: int
+    oc: int
+    jc: int
+    cs: int
+    ppt: int
+    ctas: int
+    smem: int          # bytes of shared memory per CTA
+
+
+def _tile_floats(H, W, rates, stride, v2, th, tw):
+    """Floats of one channel's red tile and grown HFF-sum tile
+    (``PyrTile`` in ``csrc/sesp_common.cuh``)."""
+    rmax = max(rates)
+    m2 = rmax + 1 if v2 else 0
+    eh, ew = th + 2 * m2, tw + 2 * m2
+    rh = (eh - 1) * stride + 1 + 2 * rmax
+    rw = (ew - 1) * stride + 1 + 2 * rmax
+    return rh * rw, eh * ew
+
+
+def _r4(v):
+    return -(-v // 4) * 4
+
+
+def fused_smem(H, W, n, k, rates, stride, v2, th, tw, oc, jc, cs=1) -> int:
+    """Shared memory of one fused CTA in bytes (``fused_smem_floats`` in
+    ``csrc/sesp_block.cu``): y, two staging buffers (red tile, dw1/dw2
+    taps), the HFF sums, the BatchNorm vectors and, in a cluster, the
+    partial expand."""
+    red, grown = _tile_floats(H, W, rates, stride, v2, th, tw)
+    stage = _r4(jc * red) + 2 * _r4(k * jc * 9)
+    return 4 * (_r4(k * jc * th * tw) + 2 * stage + _r4(k * jc * grown)
+                + _r4(3 * k * n) + (oc * th * tw if cs > 1 else 0))
+
+
+def fused_candidates(B: int, H: int, W: int, n: int, k: int,
+                     rates: Sequence[int], stride: int, v2: bool):
+    """Every fused launch geometry the kernel takes for this block, each as
+    (estimated ms, :class:`FusedConfig`): tile, output channels per tile
+    and cluster size, with the largest chunk (up to 8 channels) that leaves
+    room for two CTAs per SM.
+
+    The estimate is a linear model of one CTA's time, fitted to the times of
+    candidates at the flagship's SESP call sites on an H100: 0.91 ns per
+    depthwise element and branch of the CTA's grown tiles, 0.004 ns per
+    expand FMA, 0.39 ns per staged float of red and, in a cluster, 1.67 ns
+    per partial sum exchanged, times the waves of CTAs at most two CTAs per
+    SM (the register cap of the kernel).  ``python3
+    tools/torch_port_profile.py --sesp-sweep`` times every candidate on the
+    card and shows the chosen one beside the fastest."""
+    C = k * n
+    H2, W2 = -(-H // stride), -(-W // stride)
+    if C % 4:
+        return
+    for ppt in (4, 2):
+        for toc in (1, 2, 4, 8, 16, 32):
+            oc, tp = toc * 4, THREADS // toc * ppt
+            if oc >= 2 * C and oc > 8:
+                continue
+            for tw in (4, 8, 16, 32, 64):
+                th = tp // tw
+                if th < 4 or th * tw != tp or tw % ppt or th > 4 * tw \
+                        or tw > 4 * th or th > 2 * H2 or tw > 2 * W2:
+                    continue
+                red, grown = _tile_floats(H, W, rates, stride, v2, th, tw)
+                tiles = -(-H2 // th) * -(-W2 // tw) * -(-C // oc) * B
+                # the largest chunk, up to 8, that leaves room for two CTAs
+                # per SM
+                jc = next((j for j in (8, 4, 2, 1) if j <= max(n, 1) and
+                           fused_smem(H, W, n, k, rates, stride, v2, th, tw,
+                                      oc, j, 2) <= SMEM_BYTES // 2), None)
+                for cs in (1, 2, 4, 8) if jc else ():
+                    chunks = -(-n // jc)
+                    if cs > chunks or oc % cs:
+                        continue
+                    mine = -(-chunks // cs)
+                    smem = fused_smem(H, W, n, k, rates, stride, v2, th, tw,
+                                      oc, jc, cs)
+                    cta_ns = (0.91 * mine * jc * k * grown
+                              + 0.004 * tp * oc * C / cs
+                              + 0.39 * mine * jc * red
+                              + (1.67 * tp * oc if cs > 1 else 0))
+                    ctas = tiles * cs
+                    per_sm = max(1, min(2, SMEM_BYTES // (smem + 1024),
+                                        -(-ctas // SMS)))
+                    waves = -(-ctas // (SMS * per_sm))
+                    yield (waves * per_sm * cta_ns * 1e-6,
+                           FusedConfig(th, tw, oc, jc, cs, ppt, ctas, smem))
+
+
+@functools.lru_cache(maxsize=None)
+def fused_config(B: int, H: int, W: int, n: int, k: int,
+                 rates: tuple, stride: int, v2: bool) -> FusedConfig:
+    """The fused launch's geometry: the candidate of least estimated cost
+    (:func:`fused_candidates`); on a tie, the least shared memory (more CTAs
+    resident per SM), then the wider tile."""
+    best = min(fused_candidates(B, H, W, n, k, rates, stride, v2),
+               key=lambda c: (c[0], c[1].smem, -c[1].tw), default=None)
+    if best is None:
+        raise ValueError(f'no fused SESP launch fits: H={H} W={W} n={n} '
+                         f'k={k} rates={tuple(rates)} stride={stride} (the '
+                         'kernel needs k*n divisible by 4)')
+    return best[1]
+
+
+@functools.lru_cache(maxsize=None)
+def reduce_config(B: int, HW: int, n: int):
+    """(ppt, opt) of the reduce launch: 16*opt output channels per CTA (all
+    of them for n <= 64, so x is read once), and 64-pixel CTAs unless that
+    leaves the card's SMs mostly idle, then 16-pixel CTAs."""
+    opt = 1 if n <= 16 else 2 if n <= 32 else 4
+    ctas = math.ceil(HW / 64) * math.ceil(n / (16 * opt)) * B
+    return (4 if ctas >= SMS else 1), opt
+
+
+@functools.lru_cache(maxsize=None)
+def pyramid_config(B: int, H: int, W: int, n: int, k: int, rates: tuple,
+                   stride: int, v2: bool):
+    """(th, tw, jc) of kernel E: 16x16 output tiles (8x8 on maps under
+    32x32) and the largest chunk of channels, up to 8, that keeps 132 CTAs
+    and one CTA's shared memory under half of what the card allows."""
+    H2, W2 = -(-H // stride), -(-W // stride)
+    t = 16 if min(H2, W2) >= 32 else 8
+    tiles = -(-H2 // t) * -(-W2 // t) * B
+    jc = 1
+    for cand in (2, 4, 8):
+        if cand > n or tiles * -(-n // cand) < SMS or \
+                pyramid_smem(H, W, k, rates, stride, v2, t, t, cand) \
+                > SMEM_BYTES // 2:
+            break
+        jc = cand
+    return t, t, jc
+
+
+def pyramid_smem(H, W, k, rates, stride, v2, th, tw, jc) -> int:
+    """Shared memory of one kernel E CTA in bytes (``sesp_pyramid.cu``)."""
+    red, grown = _tile_floats(H, W, rates, stride, v2, th, tw)
+    return 4 * (_r4(k * jc * grown) + _r4(jc * red) + 2 * k * jc * 9)
+
+
+# ------------------------------------------------------------ the ops
+# id(w) -> (weakref to w, (w._version, w.data_ptr()), w.t().contiguous())
+_TRANSPOSED = {}
+
+
+def _transposed(w: torch.Tensor) -> torch.Tensor:
+    """``w.t().contiguous()``, kept until ``w`` changes or is freed, so that
+    the eval path (whose weights are cached on the module) transposes each
+    expand weight once.  An inference tensor has no version to key on and
+    is transposed on every call."""
+    if w.is_inference():
+        return w.t().contiguous()
+    key = (w._version, w.data_ptr())
+    hit = _TRANSPOSED.get(id(w))
+    if hit is not None and hit[0]() is w and hit[1] == key:
+        return hit[2]
+    for dead in [i for i, v in _TRANSPOSED.items() if v[0]() is None]:
+        del _TRANSPOSED[dead]
+    wt = w.detach().t().contiguous()
+    _TRANSPOSED[id(w)] = (weakref.ref(w), key, wt)
+    return wt
+
+
+def _check_pyramid(red_like, dw1, dw2, rates, stride):
+    if stride not in (1, 2):
+        raise ValueError(f'stride must be 1 or 2, got {stride}')
+    k, n = dw1.shape[0], dw1.shape[1]
+    if len(rates) != k or not 1 <= k <= 4:
+        raise ValueError(f'need 1 to 4 branches with one rate each, got k={k}, '
+                         f'rates={tuple(rates)}')
+    dev = red_like.device
+    require(dw1, 'dw1', torch.float32, (k, n, 3, 3), dev)
+    if dw2 is not None:
+        require(dw2, 'dw2', torch.float32, (k, n, 3, 3), dev)
+    return k, n, list(rates) + [1] * (4 - k)
+
+
+def sesp_pyramid(red: torch.Tensor, dw1: torch.Tensor,
+                 dw2: Optional[torch.Tensor], rates: Sequence[int],
+                 stride: int = 1, impl: Optional[str] = None) -> torch.Tensor:
+    """Kernel E: the SESP pyramid on a (B, n, H, W) float32 map -> (B, k*n,
+    ceil(H/stride), ceil(W/stride)).  Operands as in
+    :func:`sesp_pyramid_plain`."""
+    if resolve_impl(impl, red) == 'plain':
+        return sesp_pyramid_plain(red, dw1, dw2, rates, stride)
+    require(red, 'red', torch.float32)
+    if red.dim() != 4:
+        raise ValueError(f'red must be NCHW, got {tuple(red.shape)}')
+    k, n, r = _check_pyramid(red, dw1, dw2, rates, stride)
+    B, n_red, H, W = red.shape
+    if n_red != n:
+        raise ValueError(f'red has {n_red} channels, dw1 {n}')
+    th, tw, jc = pyramid_config(B, H, W, n, k, tuple(rates), stride,
+                                dw2 is not None)
+    out = torch.empty((B, k * n, -(-H // stride), -(-W // stride)),
+                      dtype=torch.float32, device=red.device)
+    check(library().lednet_sesp_pyramid(
+        red.data_ptr(), dw1.data_ptr(), ptr(dw2), out.data_ptr(), B, n, H, W,
+        k, *r, stride, th, tw, jc, stream_ptr(red)), 'sesp_pyramid')
+    sesp_pyramid.launches += 1
+    return out
+
+
+sesp_pyramid.launches = 0
+
+
 def sesp_block(x, wred, bred, a1, dw1, dw2, s2, b2, a2, wexp, bexp, a3,
                rates: Sequence[int], stride: int = 1, tail: str = 'residual',
                impl: Optional[str] = None) -> torch.Tensor:
-    """One eval SESP block on a (B, Cin, H, W) float32 map -> (B, k*n,
-    ceil(H/stride), ceil(W/stride)).  Operands as in :func:`sesp_block_plain`."""
+    """Kernel D: one eval SESP block on a (B, Cin, H, W) float32 map ->
+    (B, k*n, ceil(H/stride), ceil(W/stride)).  Operands as in
+    :func:`sesp_block_plain`."""
     if resolve_impl(impl, x) == 'plain':
         return sesp_block_plain(x, wred, bred, a1, dw1, dw2, s2, b2, a2, wexp,
                                 bexp, a3, rates, stride, tail)
     if tail not in TAILS:
         raise ValueError(f'tail must be one of {sorted(TAILS)}, got {tail!r}')
-    if stride not in (1, 2):
-        raise ValueError(f'stride must be 1 or 2, got {stride}')
     require(x, 'x', torch.float32)
     if x.dim() != 4:
         raise ValueError(f'x must be NCHW, got {tuple(x.shape)}')
+    k, n, r = _check_pyramid(x, dw1, dw2, rates, stride)
     B, Cin, H, W = x.shape
-    k, n = dw1.shape[0], dw1.shape[1]
     C = k * n
-    if len(rates) != k or not 1 <= k <= 4:
-        raise ValueError(f'need 1 to 4 branches with one rate each, got k={k}, '
-                         f'rates={tuple(rates)}')
     if tail == 'residual' and (stride != 1 or Cin != C):
         raise ValueError('the residual tail needs stride 1 and Cin == k*n')
     dev = x.device
@@ -108,29 +341,25 @@ def sesp_block(x, wred, bred, a1, dw1, dw2, s2, b2, a2, wexp, bexp, a3,
                           ('b2', b2, C), ('a2', a2, C), ('bexp', bexp, C),
                           ('a3', a3, C)):
         require(t, name, f32, (size,), dev)
-    require(dw1, 'dw1', f32, (k, n, 3, 3), dev)
-    if dw2 is not None:
-        require(dw2, 'dw2', f32, (k, n, 3, 3), dev)
     require(wexp, 'wexp', f32, (C, C), dev)
-    r = list(rates) + [1] * (4 - k)
-    H2, W2 = -(-H // stride), -(-W // stride)
     lib = library()
     stream = stream_ptr(x)
     red = torch.empty((B, n, H, W), dtype=f32, device=dev)
     check(lib.lednet_sesp_reduce(
         x.data_ptr(), wred.data_ptr(), bred.data_ptr(), a1.data_ptr(),
-        red.data_ptr(), B, Cin, H * W, n, stream), 'sesp_block/reduce')
-    pyr = torch.empty((B, C, H2, W2), dtype=f32, device=dev)
-    check(lib.lednet_sesp_pyramid(
-        red.data_ptr(), dw1.data_ptr(), pyr.data_ptr(), B, n, H, W, k, *r,
-        stride, stream), 'sesp_block/pyramid')
-    out = torch.empty((B, C, H2, W2), dtype=f32, device=dev)
-    check(lib.lednet_sesp_merge(
-        pyr.data_ptr(), None if dw2 is None else dw2.data_ptr(),
-        s2.data_ptr(), b2.data_ptr(), a2.data_ptr(), wexp.data_ptr(),
+        red.data_ptr(), B, Cin, H * W, n, *reduce_config(B, H * W, n),
+        stream), 'sesp_block/reduce')
+    cfg = fused_config(B, H, W, n, k, tuple(rates), stride, dw2 is not None)
+    out = torch.empty((B, C, -(-H // stride), -(-W // stride)), dtype=f32,
+                      device=dev)
+    check(lib.lednet_sesp_fused(
+        red.data_ptr(), dw1.data_ptr(), ptr(dw2), s2.data_ptr(),
+        b2.data_ptr(), a2.data_ptr(), _transposed(wexp).data_ptr(),
         bexp.data_ptr(), a3.data_ptr(),
-        x.data_ptr() if tail == 'residual' else None, out.data_ptr(), B, C,
-        H2, W2, k, *r, TAILS[tail], stream), 'sesp_block/merge')
+        x.data_ptr() if tail == 'residual' else None,
+        out.data_ptr(), B, n, H, W, k, *r, stride, TAILS[tail], cfg.th,
+        cfg.tw, cfg.oc, cfg.jc, cfg.cs, cfg.ppt, stream),
+        'sesp_block/fused')
     sesp_block.launches += 1
     return out
 

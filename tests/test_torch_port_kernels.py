@@ -2,7 +2,7 @@
 package's Pallas kernel run by the Pallas interpreter on the CPU
 (``interpret=True``), at the contracts of ``tests/test_pallas_kernels.py``:
 bit-exact for the normalization, relative error 1e-5 in float32 (2e-2 for a
-bfloat16 stem input) for the convs and the SESP block.
+bfloat16 stem input) for the convs, the SESP block and the SESP pyramid.
 
 The CUDA kernels themselves run only on a GPU; ``chip_smoke.py`` holds each
 of them against these plain versions there.  Here the tests also pin the
@@ -18,12 +18,19 @@ from lednet_tpu.ops.pallas.s2d_input import normalize_s2d
 from lednet_tpu.ops.pallas.sesp_pyramid import bn_fold as jbn_fold
 from lednet_tpu.ops.pallas.sesp_pyramid import dense_grouped as jdense_grouped
 from lednet_tpu.ops.pallas.sesp_pyramid import sesp_block as jsesp_block
+from lednet_tpu.ops.pallas.sesp_pyramid import sesp_pyramid as jsesp_pyramid
 from lednet_tpu.ops.pallas.stem_conv import stem_convs_packed
 from lednet_tpu.ops.s2d import (depth_to_space, pack_s1_conv_weights,
                                 pack_s2_conv_weights, space_to_depth)
 from lednet_tpu_torch.ops.kernels import (basic_pair, normalize_image,
-                                          sesp_block, stem_convs)
-from lednet_tpu_torch.ops.kernels.sesp_pyramid import bn_fold, dense_grouped
+                                          sesp_block, sesp_pyramid, stem_convs)
+from lednet_tpu_torch.ops.kernels.sesp_pyramid import (SMEM_BYTES, THREADS,
+                                                       bn_fold, dense_grouped,
+                                                       fused_config,
+                                                       fused_smem,
+                                                       pyramid_config,
+                                                       pyramid_smem,
+                                                       reduce_config)
 from test_torch_port_common import nchw, nhwc, rel_err
 
 MEAN = [123.675, 116.28, 103.53]
@@ -145,6 +152,70 @@ def test_sesp_block_plain_matches_pallas(rng, tail, stride, with_v2, cin, n,
     assert rel_err(nhwc(out), np.asarray(ref)) < 1e-5
 
 
+# the flagship's 11 SESP call sites (bs=1, 1024x1024, k=4):
+# (Cin, n, H, W, rates, stride) with H x W the block's input map
+FLAGSHIP_SESP = [
+    (64, 16, 128, 128, (1, 2, 3, 4), 2),     # context1.down.eesp
+    (128, 32, 64, 64, (1, 1, 2, 3), 1),      # context1.block1
+    (64, 16, 128, 128, (1, 1, 1, 1), 1),     # spatial1/2 block0/1 (x4)
+    (128, 32, 64, 64, (1, 2, 3, 4), 2),      # context2.down.eesp
+    (256, 64, 32, 32, (1, 1, 2, 3), 1),      # context2.block1
+    (64, 32, 128, 128, (1, 1, 1, 1), 1),     # spatial3.block0
+    (256, 64, 32, 32, (1, 2, 3, 4), 2),      # context3.down.eesp
+    (512, 32, 16, 16, (1, 1, 2, 3), 1),      # spp
+]
+
+
+@pytest.mark.parametrize('cin,n,H,W,rates,stride', FLAGSHIP_SESP)
+def test_sesp_launch_configs_fit_the_card(cin, n, H, W, rates, stride):
+    """Kernel D's fused launch and kernel E get a geometry that the kernels
+    take (256 threads, whole thread tiles, power-of-two tiles, chunks and
+    clusters) within one CTA's shared memory (227 KB), with and without the
+    v2 stage."""
+    k = 4
+    C = k * n
+    H2, W2 = -(-H // stride), -(-W // stride)
+    for v2 in (True, False):
+        cfg = fused_config(1, H, W, n, k, rates, stride, v2)
+        assert (cfg.th * cfg.tw // cfg.ppt) * (cfg.oc // 4) == THREADS
+        assert cfg.tw % cfg.ppt == 0 and cfg.ppt in (2, 4)
+        pow2 = lambda v: v & (v - 1) == 0
+        assert pow2(cfg.th) and pow2(cfg.tw) and pow2(cfg.jc)
+        assert cfg.smem == fused_smem(H, W, n, k, rates, stride, v2, cfg.th,
+                                      cfg.tw, cfg.oc, cfg.jc, cfg.cs) \
+            <= SMEM_BYTES
+        assert cfg.cs in (1, 2, 4, 8) and cfg.oc % cfg.cs == 0
+        assert cfg.cs <= -(-n // cfg.jc)             # every CTA has a chunk
+        assert cfg.ctas == (-(-H2 // cfg.th) * -(-W2 // cfg.tw)
+                            * -(-C // cfg.oc) * cfg.cs)
+        th, tw, jc = pyramid_config(1, H, W, n, k, rates, stride, v2)
+        assert pyramid_smem(H, W, k, rates, stride, v2, th, tw, jc) \
+            <= SMEM_BYTES and 1 <= jc <= n and pow2(th) and pow2(jc)
+    ppt, opt = reduce_config(1, H * W, n)
+    assert ppt in (1, 4) and opt in (1, 2, 4) and n <= 16 * opt  # x read once
+
+
+# ------------------------------------------------------- E: SESP pyramid
+@pytest.mark.parametrize('H,W', [(12, 20), (13, 21)])
+@pytest.mark.parametrize('rates', [(1, 2, 3, 4), (1, 1, 2, 3)])
+@pytest.mark.parametrize('stride,with_v2', [(1, True), (1, False),
+                                            (2, True), (2, False)])
+def test_sesp_pyramid_plain_matches_pallas(rng, H, W, rates, stride,
+                                           with_v2):
+    n, k = 16, len(rates)
+    red = rng.standard_normal((2, H, W, n)).astype(np.float32)
+    dw1 = (rng.standard_normal((k, 3, 3, n)) * 0.3).astype(np.float32)
+    dw2 = ((rng.standard_normal((k, 3, 3, n)) * 0.3).astype(np.float32)
+           if with_v2 else None)
+    ref = jsesp_pyramid(jnp.asarray(red), jnp.asarray(dw1),
+                        None if dw2 is None else jnp.asarray(dw2),
+                        rates=rates, stride=stride, interpret=True)
+    dw = lambda a: None if a is None else _t(a.transpose(0, 3, 1, 2))
+    out = sesp_pyramid(nchw(red), dw(dw1), dw(dw2), rates, stride)
+    assert out.shape == (2, k * n, -(-H // stride), -(-W // stride))
+    assert rel_err(nhwc(out), np.asarray(ref)) < 1e-5
+
+
 def test_fold_helpers_match_jax(rng):
     f = lambda *s: rng.standard_normal(s).astype(np.float32)
     scale, bias, mean = f(6), f(6), f(6)
@@ -175,11 +246,14 @@ def _cpu_calls():
             torch.zeros(4, 2, 3, 3), None, *[torch.zeros(8)] * 3,
             torch.zeros(8, 8), torch.zeros(8), torch.zeros(8),
             rates=(1, 1, 1, 1), impl='cuda'),
+        'sesp_pyramid': lambda: sesp_pyramid(
+            torch.zeros(1, 2, 8, 8), torch.zeros(4, 2, 3, 3), None,
+            (1, 2, 3, 4), impl='cuda'),
     }
 
 
 @pytest.mark.parametrize('op', ['normalize_image', 'stem_convs', 'basic_pair',
-                                'sesp_block'])
+                                'sesp_block', 'sesp_pyramid'])
 def test_cuda_impl_on_cpu_tensor_raises(op):
     with pytest.raises(ValueError, match="impl='cuda' needs CUDA tensors"):
         _cpu_calls()[op]()

@@ -5,8 +5,12 @@ variables through ``lednet_tpu_torch.convert``.
 Tolerance: max|port - jax| <= 1e-5 * max|jax| for every brick (float32
 arithmetic in another order; no reduction here is long enough to need more).
 The SESP cases also run the kernel path's host-side glue (BatchNorm folding,
-dense grouped 1x1s, tail selection) through kernel D's plain version.
+dense grouped 1x1s, tail selection) through kernel D's plain version, and the
+fold-cache tests show that the kernel paths' cached operands follow every
+change of the weights they are folded from.
 """
+import copy
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,6 +23,7 @@ from lednet_tpu.models import layers as jlayers
 from lednet_tpu.models import seam as jseam
 from lednet_tpu.models.decode_heads import led_head as jhead
 from lednet_tpu_torch.models import aff, espnet, getb, layers, seam
+from lednet_tpu_torch.models.backbones.lednet import LEDNet
 from lednet_tpu_torch.models.decode_heads import led_head
 from test_torch_port_common import (jax_variables, load_port, nchw, nhwc,
                                     random_variables, rel_err)
@@ -139,3 +144,75 @@ def test_led_head_predict(rng):
         out = nhwc(t.predict_by_feat(tl, size))
     assert out.shape == ref.shape == (1, 50, 78, 3)
     assert rel_err(out, ref) < TOL
+
+
+# ------------------------------------------------------------ fold caches
+def _edits(part):
+    """In-place edits of a conv weight, a running stat and a BatchNorm bias
+    inside ``part``, as ``no_grad`` code (a checkpoint loader, a smoke test)
+    makes them."""
+    convs = [m for m in part.modules() if isinstance(m, torch.nn.Conv2d)]
+    bns = [m for m in part.modules() if isinstance(m, torch.nn.BatchNorm2d)]
+    return [lambda: convs[-1].weight.mul_(1.5),
+            lambda: bns[0].running_var.add_(0.5),
+            lambda: bns[-1].bias.sub_(0.2)]
+
+
+def _check_fold_cache(module, part, kernel, reference, x):
+    """``kernel(m, x)`` (a kernel path run by the plain versions) folds once,
+    then follows in-place edits, ``load_state_dict`` and a deep copy moved
+    with ``.to('cpu')``, always equal to ``reference(m, x)`` (the module
+    form); the cache is not part of ``state_dict()``.  ``part(m)`` is the
+    submodule whose weights are folded."""
+    saved = copy.deepcopy(module.state_dict())
+    with torch.no_grad():
+        first = kernel(module, x)
+        cached = module._operand_cache
+        assert rel_err(first.numpy(), reference(module, x).numpy()) < TOL
+        np.testing.assert_array_equal(kernel(module, x).numpy(), first.numpy())
+        assert module._operand_cache is cached          # nothing re-folded
+        before = first
+        for edit in _edits(part(module)):
+            edit()
+            out = kernel(module, x)
+            assert module._operand_cache is not cached
+            cached = module._operand_cache
+            assert np.abs(out.numpy() - before.numpy()).max() > 1e-4
+            assert rel_err(out.numpy(), reference(module, x).numpy()) < TOL
+            before = out
+        module.load_state_dict(saved)
+        out = kernel(module, x)
+        np.testing.assert_array_equal(out.numpy(), first.numpy())
+        twin = copy.deepcopy(module).to('cpu')
+        _edits(part(twin))[0]()
+        out = kernel(twin, x)
+        assert rel_err(out.numpy(), reference(twin, x).numpy()) < TOL
+        np.testing.assert_array_equal(kernel(module, x).numpy(),
+                                      first.numpy())
+    assert not [key for key in module.state_dict() if 'cache' in key]
+
+
+def test_sesp_fold_cache_follows_weight_changes(rng):
+    j = jesp.SESP(16, 16, spatial=False)
+    t = espnet.SESP(16, 16, spatial=False)
+    x = _x(rng, 1, 9, 11, 16)
+    params, stats = random_variables(j, jnp.asarray(x), seed=1, train=False)
+    load_port(t, params, stats)
+    _check_fold_cache(t, lambda m: m, lambda m, v: m.kernel_forward(v, 'plain'),
+                      lambda m, v: m.module_forward(v), nchw(x))
+
+
+def test_stem_fold_cache_follows_weight_changes(rng):
+    t = LEDNet(channels=8, ppm_channels=32).eval()
+    gen = torch.Generator().manual_seed(0)
+    layers.init_weights(t, gen)
+    with torch.no_grad():
+        for m in t.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.running_var.uniform_(0.5, 1.5, generator=gen)
+                m.running_mean.normal_(0, 0.1, generator=gen)
+    stem = lambda m: torch.nn.ModuleList([m.stem_conv1, m.stem_conv2,
+                                          m.stem_block1, m.stem_block2])
+    _check_fold_cache(t, stem, lambda m, v: m.kernel_stem(v, 'plain')[2],
+                      lambda m, v: m.module_stem(v)[2],
+                      nchw(_x(rng, 1, 24, 32, 3)))

@@ -9,9 +9,21 @@ profiles bs=1 forwards (preprocess + ``predict``) with ``torch.profiler``, once
 through the CUDA kernels and once through the plain module forms.  Prints,
 per path: wall time per forward (host clock around synchronized forwards),
 device busy time per forward (the sum of the device ops' self time), the
-idle share 1 - busy/wall, the number of device ops per forward, the top
-device kernels by time and the top aten ops by the device time they
-launched, and last the whole report as one JSON line.  Needs a GPU.
+idle share 1 - busy/wall, the number of device ops per forward, the device
+time and launches per forward of each of the port's CUDA kernels by op
+(kernel D's reduce and fused launches; kernel E, which no model calls,
+reads 0), the top device kernels by time and the top aten ops by the device
+time they launched, and last the whole report as one JSON line.  Needs a
+GPU.
+
+    python3 tools/torch_port_profile.py --sesp-sweep
+
+instead times kernel D's fused launch at every launch geometry that
+``fused_candidates`` offers, at each distinct SESP call site of the
+flagship's forward (CUDA events, 30 launches each), checks every geometry
+against the plain version (max|kernel - plain| <= 1e-5 * max|plain|), and
+prints per site the chosen geometry's time beside the fastest one's, then
+one JSON line.
 """
 import argparse
 import json
@@ -21,6 +33,14 @@ import sys
 import time
 
 CONFIG = 'configs/LED_Net/lednet_80k_cityscapes-1024x1024.py'
+# the port's ops -> the __global__ functions of lednet_tpu_torch/csrc
+PORT_KERNELS = {
+    'normalize_image': ('normalize_kernel',),
+    'stem_convs': ('stem_conv3x3_s2_kernel',),
+    'basic_pair': ('conv3x3_c32_kernel',),
+    'sesp_block': ('sesp_reduce_kernel', 'sesp_fused_kernel'),
+    'sesp_pyramid': ('sesp_pyramid_kernel',),
+}
 
 
 def _time_us(evt, names):
@@ -69,15 +89,107 @@ def profile_path(model, x, impl, iters):
     aten = [e for e in events if e.device_type == DeviceType.CPU
             and e.key.startswith('aten::') and _device_us(e) > 0]
 
+    port = {}
+    for op, fns in PORT_KERNELS.items():
+        per_fn = {fn: [e for e in device if f'lednet::{fn}' in e.key]
+                  for fn in fns}
+        port[op] = dict(
+            ms_per_forward=sum(_self_device_us(e) for es in per_fn.values()
+                               for e in es) / 1e3 / iters,
+            launches_per_forward=sum(e.count for es in per_fn.values()
+                                     for e in es) / iters,
+            by_kernel={fn: sum(_self_device_us(e) for e in es) / 1e3 / iters
+                       for fn, es in per_fn.items()})
+
     def rows(evts, key):
         return [dict(name=e.key[:90], ms_per_forward=key(e) / 1e3 / iters,
                      calls_per_forward=e.count / iters)
                 for e in sorted(evts, key=key, reverse=True)[:15]]
     return dict(impl=impl, wall_ms=wall_ms, device_busy_ms=busy_ms,
                 idle_share=max(0.0, 1.0 - busy_ms / wall_ms),
-                device_ops_per_forward=n_ops,
+                device_ops_per_forward=n_ops, port_kernels=port,
                 top_kernels=rows(device, _self_device_us),
                 top_aten_ops=rows(aten, _device_us))
+
+
+def sesp_sweep(model, x):
+    """Time every fused-launch geometry of kernel D at the forward's SESP
+    call sites (see the module docstring)."""
+    import torch
+    import lednet_tpu_torch.models.espnet as espnet
+    from lednet_tpu_torch.ops.kernels import _build
+    kmod = sys.modules['lednet_tpu_torch.ops.kernels.sesp_pyramid']
+    calls, op = [], espnet.sesp_block
+
+    def record(*a, **kw):
+        calls.append((a, kw))
+        return op(*a, **kw)
+    espnet.sesp_block = record
+    try:
+        y, _, _ = model.data_preprocessor(x, impl='cuda')
+        model.predict(y, 'cuda')
+    finally:
+        espnet.sesp_block = op
+    lib, stream = _build.library(), torch.cuda.current_stream().cuda_stream
+    sites, seen = [], set()
+    for a, kw in calls:
+        (xx, wred, bred, a1, dw1, dw2, s2, b2, a2, wexp, bexp, a3) = a
+        key = (tuple(xx.shape), tuple(dw1.shape), kw['rates'], kw['stride'])
+        if key in seen:
+            continue
+        seen.add(key)
+        B, cin, H, W = xx.shape
+        k, n = dw1.shape[:2]
+        rates, stride, tail = tuple(kw['rates']), kw['stride'], kw['tail']
+        ref = kmod.sesp_block_plain(*a, rates, stride, tail)
+        red = torch.einsum('oi,bihw->bohw', wred, xx) + bred.view(1, -1, 1, 1)
+        red = torch.where(red >= 0, red, a1.view(1, -1, 1, 1) * red)
+        out, wt = torch.empty_like(ref), wexp.t().contiguous()
+        chosen = kmod.fused_config(B, H, W, n, k, rates, stride, dw2 is not None)
+        rows = []
+        for _, c in kmod.fused_candidates(B, H, W, n, k, rates, stride,
+                                          dw2 is not None):
+            def launch(c=c):
+                return lib.lednet_sesp_fused(
+                    red.data_ptr(), dw1.data_ptr(), _build.ptr(dw2),
+                    s2.data_ptr(), b2.data_ptr(), a2.data_ptr(), wt.data_ptr(),
+                    bexp.data_ptr(), a3.data_ptr(),
+                    xx.data_ptr() if tail == 'residual' else None,
+                    out.data_ptr(), B, n, H, W, k, *rates, stride,
+                    kmod.TAILS[tail], c.th, c.tw, c.oc, c.jc, c.cs, c.ppt,
+                    stream)
+            out.fill_(float('nan'))
+            _build.check(launch(), 'sesp_sweep')
+            torch.cuda.synchronize()
+            err = ((out - ref).abs().max() / ref.abs().max()).item()
+            if not err <= 1e-5:
+                raise AssertionError(f'{key} {c}: rel {err:.3e}')
+            for _ in range(3):
+                launch()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(30):
+                launch()
+            end.record()
+            torch.cuda.synchronize()
+            rows.append(dict(config=c._asdict(), ms=start.elapsed_time(end) / 30,
+                             rel=err))
+        best = min(rows, key=lambda r: r['ms'])
+        mine = next(r for r in rows if r['config'] == chosen._asdict())
+        sites.append(dict(input=key[0], n=n, rates=rates, stride=stride,
+                          calls=sum(1 for a_, kw_ in calls if
+                                    (tuple(a_[0].shape), tuple(a_[4].shape),
+                                     kw_['rates'], kw_['stride']) == key),
+                          candidates=len(rows), chosen=mine, fastest=best))
+        print(f"  x{'x'.join(map(str, key[0]))} n={n} rates={rates} "
+              f"stride={stride}: chosen {mine['ms']:.4f} ms {chosen}; fastest "
+              f"{best['ms']:.4f} ms {best['config']}; {len(rows)} geometries, "
+              f"max rel err {max(r['rel'] for r in rows):.2e}", flush=True)
+    for key in ('chosen', 'fastest'):
+        total = sum(s_['calls'] * s_[key]['ms'] for s_ in sites)
+        print(f'  {key}: {total:.4f} ms of fused launches per forward', flush=True)
+    return sites
 
 
 def main() -> int:
@@ -85,6 +197,9 @@ def main() -> int:
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument('--size', type=int, default=1024)
     ap.add_argument('--iters', type=int, default=20)
+    ap.add_argument('--sesp-sweep', action='store_true',
+                    help="time every launch geometry of kernel D's fused "
+                         'launch at the SESP call sites instead')
     args = ap.parse_args()
     import numpy as np
     import torch
@@ -105,6 +220,12 @@ def main() -> int:
     img = np.random.default_rng(0).integers(0, 256, (1, args.size, args.size, 3),
                                             dtype=np.uint8)
     x = torch.from_numpy(img).cuda()
+    if args.sesp_sweep:
+        with torch.inference_mode():
+            sites = sesp_sweep(model, x)
+        print(json.dumps(dict(card=card, size=args.size, sesp_sweep=sites)),
+              flush=True)
+        return 0
     report = dict(card=card, size=args.size, iters=args.iters, paths=[])
     for impl in ('cuda', 'plain'):
         r = profile_path(model, x, impl, args.iters)
@@ -112,6 +233,11 @@ def main() -> int:
         print(f"[{impl}] wall {r['wall_ms']:.3f} ms/forward, device busy "
               f"{r['device_busy_ms']:.3f} ms, idle share {r['idle_share']:.3f}, "
               f"{r['device_ops_per_forward']:.0f} device ops/forward", flush=True)
+        print('  port_kernels:', flush=True)
+        for op, k in r['port_kernels'].items():
+            parts = ', '.join(f'{fn} {ms:.4f}' for fn, ms in k['by_kernel'].items())
+            print(f"    {k['ms_per_forward']:8.4f} ms  x{k['launches_per_forward']:5.1f}  "
+                  f"{op} ({parts})", flush=True)
         for title in ('top_kernels', 'top_aten_ops'):
             print(f'  {title}:', flush=True)
             for t in r[title]:
