@@ -15,21 +15,32 @@ printing one flushed line with its seconds:
 3. kernels: one forward records every kernel call of the main path; each
    call is re-run through the kernel and through its plain PyTorch version on
    the same inputs and held to max|kernel - plain| <= TOL * max|plain|
-   (normalization: bit-exact);
+   (normalization: bit-exact); kernel C's recorded calls also through its
+   variants off the path (1 and 4 convs per launch);
 3b. pyramid: kernel E (``sesp_pyramid``), which no model calls, at each
    distinct pyramid shape of the SESP calls recorded in phase 3 (n, H, W,
    rates, stride; their dw1/dw2 and a seeded random reduced map), with the
    v2 stage and without, held to its plain version like phase 3;
+3c. ragged: kernels B and C called directly at shapes the main path (which
+   pads to /32) never gives them: batch 2, sizes that are not multiples of
+   the tiles (odd and even), maps smaller than one tile, bf16 and float32
+   stem inputs, the 16-channel width, every variant of C; held like phase 3;
 4. model: launch counts set to 0, ``inference_model`` on 4 seeded
    1024x1024 BGR uint8 images through the kernels, counts read (every kernel
    of the main path, A-D, must have launched; E is on no path and is not
-   required), then the same images with ``impl='plain'`` (module forms) and
-   a 256x256 image against the model copied to the CPU;
+   required), then the same images with ``impl='plain'`` (module forms), the
+   same images again under torch's default flags (cuDNN convs in TF32)
+   against those float32 module forms, and a 256x256 image against the
+   model copied to the CPU;
 5. timing: CUDA-event time of the kernel-path forward (preprocess +
    predict, bs=1, 5 warm-up + 50 timed), the plain path's, and each kernel's
    and plain version's time per launch at the main path's inputs (E's at
-   phase 3b's inputs); kernel D's time is printed per call site and beside
-   the earlier three-launch design's.
+   phase 3b's inputs); kernel D's time is printed per call site, C's per
+   variant, and B's, C's and D's beside their times before their redesigns.
+   Each kernel's bound is the larger of its bytes over 3.35 TB/s and its
+   operations over the peak of the units it runs them on: TF32 tensor cores
+   (495 TFLOP/s, three TF32 products per float32 product, two for a bf16
+   operand) for B and C, the float32 pipes (67 TFLOP/s) for the others.
 
 It prints the card line and a ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the package
@@ -54,6 +65,10 @@ TOL_MODEL = 1e-3          # whole logits, kernel path against module forms
 MIN_ARGMAX_AGREEMENT = 0.999
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM, NVIDIA data sheet
 F32_FLOPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
+TF32_FLOPS_PER_S = 495e12    # H100 SXM TF32 tensor cores, dense
+# kernels whose convs run in 3xTF32 on the tensor cores: each float32
+# product costs three TF32 products (two for a bf16 operand, exact in TF32)
+TENSOR_CORE_KERNELS = ('stem_convs', 'basic_pair')
 
 KERNEL_INFO = {   # name -> (CUDA source, TPU kernel it replaces)
     'normalize_image': ('lednet_tpu_torch/csrc/normalize.cu',
@@ -71,6 +86,20 @@ OFF_PATH = ('sesp_pyramid',)   # kernels that no model calls
 # kernel D's mean ms per call before it was fused (three launches per call),
 # measured by this script in three runs on an NVIDIA H100 80GB HBM3 at 700 W
 EARLIER_SESP_MS = (0.1155, 0.1265, 0.1262)
+# kernels B and C before their tensor-core redesign (B two launches, C four,
+# float32 pipes), measured by this script on an NVIDIA H100 80GB HBM3 at 700 W
+EARLIER_STEM_MS = 0.1260
+EARLIER_PAIR_MS = 0.2622
+# shapes off the main path (which pads to /32) for kernels B and C: batch 2,
+# odd and even sizes that are not multiples of the tiles, maps smaller than
+# one tile, and the 16-channel width; B's bf16 input is staged by 16-byte
+# copies when its width is a multiple of 8 (264) and element by element
+# otherwise (378, 45, 9)
+RAGGED_STEM = [((2, 3, 250, 378), 32), ((2, 3, 200, 264), 32),
+               ((2, 3, 37, 45), 32), ((1, 3, 7, 9), 32),
+               ((2, 3, 250, 378), 16)]
+RAGGED_PAIR = [((2, 32, 37, 70), 32), ((2, 32, 36, 64), 32),
+               ((1, 32, 5, 11), 32), ((2, 16, 37, 70), 16)]
 
 
 class PhaseError(RuntimeError):
@@ -142,15 +171,16 @@ def recording(calls):
 
 
 def work(name, args, kw):
-    """(bytes moved, float32 operations) the op's function needs: each input
-    read once, each output written once."""
+    """(bytes moved, float32 operations, tensor-core TF32 operations) the
+    op's function needs: each input read once, each output written once; the
+    third is the TF32 work of the 3xTF32 kernels (B, C), else 0."""
     nb = lambda t: t.numel() * t.element_size()
     tensors = [a for a in args if hasattr(a, 'numel')]
     if name == 'normalize_image':
         x = args[0]
         out_bytes = x.numel() * (2 if kw.get('out_dtype') is None or
                                  str(kw['out_dtype']).endswith('bfloat16') else 4)
-        return nb(x) + out_bytes, 2 * x.numel()
+        return nb(x) + out_bytes, 2 * x.numel(), 0
     if name == 'stem_convs':
         x, w1, b1, w2, b2 = args[:5]
         B, cin, H, W = x.shape
@@ -158,12 +188,16 @@ def work(name, args, kw):
         h1, w1_ = -(-H // 2), -(-W // 2)
         h2, w2_ = -(-h1 // 2), -(-w1_ // 2)
         out = 4 * B * (c1 * h1 * w1_ + c2 * h2 * w2_)
-        flops = 2 * B * (c1 * h1 * w1_ * cin * 9 + c2 * h2 * w2_ * c1 * 9)
-        return sum(nb(t) for t in tensors) + out, flops
+        conv1 = 2 * B * c1 * h1 * w1_ * cin * 9
+        conv2 = 2 * B * c2 * h2 * w2_ * c1 * 9
+        bf16 = str(x.dtype).endswith('bfloat16')
+        return (sum(nb(t) for t in tensors) + out, conv1 + conv2,
+                (2 if bf16 else 3) * conv1 + 3 * conv2)
     if name == 'basic_pair':
         x = args[0]
         B, C, H, W = x.shape
-        return sum(nb(t) for t in tensors) + nb(x), 4 * 2 * B * H * W * C * C * 9
+        flops = 4 * 2 * B * H * W * C * C * 9
+        return sum(nb(t) for t in tensors) + nb(x), flops, 3 * flops
     if name == 'sesp_block':
         x, dw1 = args[0], args[4]
         B, cin, H, W = x.shape
@@ -174,7 +208,7 @@ def work(name, args, kw):
         v2 = args[5] is not None
         flops = B * (2 * H * W * n * cin + h2 * w2 * (18 * C + C)
                      + (18 * C if v2 else 0) * h2 * w2 + 2 * C * C * h2 * w2)
-        return sum(nb(t) for t in tensors) + 4 * B * C * h2 * w2, flops
+        return sum(nb(t) for t in tensors) + 4 * B * C * h2 * w2, flops, 0
     if name == 'sesp_pyramid':
         red, dw1, dw2 = args[:3]
         B, n, H, W = red.shape
@@ -183,7 +217,7 @@ def work(name, args, kw):
         h2, w2 = -(-H // stride), -(-W // stride)
         stages = 1 if dw2 is None else 2
         return (sum(nb(t) for t in tensors) + 4 * B * C * h2 * w2,
-                B * (18 * C * stages + C) * h2 * w2)
+                B * (18 * C * stages + C) * h2 * w2, 0)
     raise ValueError(name)
 
 
@@ -193,6 +227,43 @@ def outputs(res):
 
 def shape_of(args):
     return 'x' + 'x'.join(str(s) for s in args[0].shape)
+
+
+def bounds_ms(name, args, kw):
+    """(bound ms, 'bytes' or 'operations', the float32-pipe bound ms): the
+    larger of bytes over the memory rate and operations over the peak rate
+    of the units the kernel runs them on (TF32 tensor cores for B and C,
+    float32 pipes for the rest).  The third is the earlier float32-pipe
+    bound of every kernel, for comparison with earlier rows."""
+    nbytes, flops, tc_ops = work(name, args, kw)
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    tf32 = flops / F32_FLOPS_PER_S * 1e3
+    to = tc_ops / TF32_FLOPS_PER_S * 1e3 if name in TENSOR_CORE_KERNELS else tf32
+    return max(tb, to), 'bytes' if tb >= to else 'operations', max(tb, tf32)
+
+
+def check_against_plain(name, op, args, kw, tol, errs):
+    """Run op through its kernel and its plain version on the same inputs
+    and hold every output to max|kernel - plain| <= tol * max|plain|."""
+    import torch
+    with torch.inference_mode():
+        got = outputs(op(*args, **dict(kw, impl='cuda')))
+        torch.cuda.synchronize()
+        ref = outputs(op(*args, **dict(kw, impl='plain')))
+        torch.cuda.synchronize()
+    extra = ''.join(f' {k}={v}' for k, v in kw.items()
+                    if k in ('chain', 'stride'))
+    for g, r in zip(got, ref):
+        if g.shape != r.shape or g.dtype != r.dtype:
+            raise AssertionError(f'{name} {shape_of(args)}: {g.shape} '
+                                 f'{g.dtype} vs {r.shape} {r.dtype}')
+        e_rel, e_abs = rel(g, r), (g.double() - r.double()).abs().max().item()
+        say(f'  {name} {shape_of(args)} {args[0].dtype}{extra}: max_abs '
+            f'{e_abs:.3e} rel {e_rel:.3e} (tol {tol:g})')
+        if not e_rel <= tol:
+            raise AssertionError(f'{name} {shape_of(args)} disagrees with '
+                                 f'its plain version')
+        errs.append(e_abs)
 
 
 # ---------------------------------------------------------------- phases
@@ -209,7 +280,8 @@ def main() -> int:
         return 2
     from lednet_tpu_torch.apis import inference_model, init_model
     from lednet_tpu_torch.ops import kernels
-    from lednet_tpu_torch.ops.kernels import _build
+    from lednet_tpu_torch.ops.kernels import _build, basic_pair, stem_convs
+    from lednet_tpu_torch.ops.kernels.conv_block import CHAINS, PAIR_CHAIN
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     repo = os.path.dirname(os.path.abspath(__file__))
@@ -258,23 +330,13 @@ def main() -> int:
         torch.cuda.synchronize()
         errs = {name: [] for name in KERNEL_INFO}
         for name, op, args, kw in calls:
-            with torch.inference_mode():
-                got = outputs(op(*args, **dict(kw, impl='cuda')))
-                torch.cuda.synchronize()
-                ref = outputs(op(*args, **dict(kw, impl='plain')))
-                torch.cuda.synchronize()
-            for g, r in zip(got, ref):
-                if g.shape != r.shape or g.dtype != r.dtype:
-                    raise AssertionError(f'{name} {shape_of(args)}: {g.shape} '
-                                         f'{g.dtype} vs {r.shape} {r.dtype}')
-                e_rel, e_abs = rel(g, r), (g.double() - r.double()).abs().max().item()
-                tol = 0.0 if name == 'normalize_image' else TOL_KERNEL
-                say(f'  {name} {shape_of(args)}: max_abs {e_abs:.3e} '
-                    f'rel {e_rel:.3e} (tol {tol:g})')
-                if not e_rel <= tol:
-                    raise AssertionError(f'{name} {shape_of(args)} disagrees '
-                                         f'with its plain version')
-                errs[name].append(e_abs)
+            tol = 0.0 if name == 'normalize_image' else TOL_KERNEL
+            check_against_plain(name, op, args, kw, tol, errs[name])
+            if name == 'basic_pair':      # the variants off the path too
+                for L in CHAINS:
+                    if L != PAIR_CHAIN:
+                        check_against_plain(name, op, args, dict(kw, chain=L),
+                                            tol, errs[name])
         missing = [n for n, e in errs.items() if not e and n not in OFF_PATH]
         if missing:
             raise AssertionError(f'the main path called no {missing}')
@@ -311,6 +373,28 @@ def main() -> int:
                                      f'with its plain version')
             errs[name].append(e_abs)
 
+    with phase('3c ragged'):
+        # kernels B and C called directly at shapes the main path never
+        # gives them (it pads to /32): tile edges, batch 2, tiny maps
+        ragged = []
+        for shape, c in RAGGED_STEM:
+            w1 = 0.3 * torch.randn((c, 3, 3, 3), generator=gen)
+            w2 = 0.1 * torch.randn((c, c, 3, 3), generator=gen)
+            b1, b2 = 0.1 * torch.randn(c, generator=gen), 0.1 * torch.randn(c, generator=gen)
+            x = torch.randn(shape, generator=gen)
+            for dt in (torch.bfloat16, torch.float32):
+                ragged.append(('stem_convs', stem_convs,
+                               tuple(t.cuda() for t in (x.to(dt), w1, b1, w2, b2)), {}))
+        for shape, c in RAGGED_PAIR:
+            ws = 0.08 * torch.randn((4, c, c, 3, 3), generator=gen)
+            bs = 0.1 * torch.randn((4, c), generator=gen)
+            x = torch.randn(shape, generator=gen).relu()
+            for L in CHAINS:
+                ragged.append(('basic_pair', basic_pair,
+                               (x.cuda(), ws.cuda(), bs.cuda()), {'chain': L}))
+        for name, op, args, kw in ragged:
+            check_against_plain(name, op, args, kw, TOL_KERNEL, errs[name])
+
     with phase('4 model'):
         kernels.reset_launch_counts()
         res = inference_model(model, imgs, impl='cuda')
@@ -333,6 +417,26 @@ def main() -> int:
                 f'max|logit| {np.abs(lb).max():.3f}')
             if not (e <= TOL_MODEL and agree >= MIN_ARGMAX_AGREEMENT):
                 raise AssertionError(f'image {i}: kernel path disagrees')
+        # a caller's defaults: torch runs cuDNN's float32 convs in TF32
+        # (allow_tf32 True) and float32 matmuls in full float32; the module
+        # forms above ran with TF32 off
+        saved = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            tf32 = inference_model(model, imgs)
+        finally:
+            torch.backends.cudnn.allow_tf32 = saved
+        for i, (a, b) in enumerate(zip(tf32, plain)):
+            la, lb = a['seg_logits'], b['seg_logits']
+            e = np.abs(la - lb).max() / np.abs(lb).max()
+            agree = (a['pred_sem_seg'] == b['pred_sem_seg']).mean()
+            say(f'  image {i}: inference_model under torch defaults (cuDNN '
+                f'TF32 on) vs float32 module forms rel {e:.3e} (tol '
+                f'{TOL_MODEL:g}), argmax agreement {agree:.6f}')
+            if not (np.isfinite(la).all() and e <= TOL_MODEL
+                    and agree >= MIN_ARGMAX_AGREEMENT):
+                raise AssertionError(f'image {i}: TF32 defaults change the '
+                                     f'answer')
         small = rng.integers(0, 256, (256, 256, 3), dtype=np.uint8)
         gpu = inference_model(model, small)
         cpu = inference_model(copy.deepcopy(model).to('cpu'), small)
@@ -360,34 +464,48 @@ def main() -> int:
         for name, (source, replaces) in KERNEL_INFO.items():
             mine = [(op, args, kw) for n, op, args, kw in calls + pyr_calls
                     if n == name]
-            ms = plain_ms = bound = 0.0
+            ms = plain_ms = bound = old_bound = 0.0
             bound_by = {'bytes': 0.0, 'operations': 0.0}
+            variants = {L: 0.0 for L in CHAINS} if name == 'basic_pair' else {}
             with torch.inference_mode():
                 for op, args, kw in mine:
                     t = cuda_ms(lambda: op(*args, **dict(kw, impl='cuda')), 20)
                     t_plain = cuda_ms(lambda: op(*args, **dict(kw, impl='plain')), 20)
-                    nbytes, flops = work(name, args, kw)
-                    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
-                    ms, plain_ms, bound = ms + t, plain_ms + t_plain, bound + max(tb, tf)
-                    bound_by['bytes' if tb >= tf else 'operations'] += max(tb, tf)
+                    for L in variants:
+                        variants[L] += cuda_ms(lambda: op(*args, **dict(
+                            kw, impl='cuda', chain=L)), 20)
+                    b, by, b_f32 = bounds_ms(name, args, kw)
+                    ms, plain_ms, bound = ms + t, plain_ms + t_plain, bound + b
+                    old_bound += b_f32
+                    bound_by[by] += b
                     if name in ('sesp_block', 'sesp_pyramid'):
                         rates = kw['rates'] if name == 'sesp_block' else args[3]
                         say(f'    {name} {shape_of(args)} rates {tuple(rates)} '
                             f'stride {kw["stride"]}: {t:.4f} ms, bound '
-                            f'{max(tb, tf):.4f} ms, plain {t_plain:.4f} ms')
+                            f'{b:.4f} ms, plain {t_plain:.4f} ms')
             k = len(mine)
             rows.append(dict(
                 name=name, route='cuda', source=source, replaces=replaces,
                 launches=launches[name], max_abs_err=max(errs[name]),
                 ms=ms / k, plain_ms=plain_ms / k, bound_ms=bound / k,
-                bound_by=max(bound_by, key=bound_by.get), library_ms=None))
+                bound_by=max(bound_by, key=bound_by.get), library_ms=None,
+                ops_on='TF32 tensor cores, 3xTF32'
+                if name in TENSOR_CORE_KERNELS else 'float32 pipes',
+                f32_pipe_bound_ms=old_bound / k))
             say(f'  {name}: {ms / k:.4f} ms/launch, {launches[name] / N_IMAGES:g} '
                 f'launches/forward, bound {bound / k:.4f} ms '
-                f'({rows[-1]["bound_by"]}), plain {plain_ms / k:.4f} ms')
-            if name == 'sesp_block':
-                say(f'  sesp_block before it was fused (three launches per '
-                    f'call, same card type): '
-                    f'{" / ".join(f"{t:.4f}" for t in EARLIER_SESP_MS)} ms/launch')
+                f'({rows[-1]["bound_by"]}, {rows[-1]["ops_on"]}; float32-pipe '
+                f'bound {old_bound / k:.4f} ms), plain {plain_ms / k:.4f} ms')
+            for L, t in variants.items():
+                say(f'    basic_pair with {L} conv(s) per launch '
+                    f'({4 // L} launches){" (on the path)" if L == PAIR_CHAIN else ""}: '
+                    f'{t / k:.4f} ms/call')
+            earlier = {'sesp_block': ' / '.join(f'{t:.4f}' for t in EARLIER_SESP_MS),
+                       'stem_convs': f'{EARLIER_STEM_MS:.4f}',
+                       'basic_pair': f'{EARLIER_PAIR_MS:.4f}'}
+            if name in earlier:
+                say(f'  {name} before its redesign (same card type): '
+                    f'{earlier[name]} ms/launch')
 
     say(card)
     say(json.dumps({'kernels': rows}))

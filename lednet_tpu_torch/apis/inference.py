@@ -13,6 +13,7 @@ already at the pipeline's scale need neither.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -131,6 +132,23 @@ def _prepare_data(imgs, cfg) -> Tuple[List[Dict], bool]:
     return data, is_batch
 
 
+@contextlib.contextmanager
+def float32_math():
+    """Float32 convs and matmuls in full float32 inside, the caller's flags
+    restored after.  torch's defaults let cuDNN run float32 convs in TF32
+    (10-bit mantissas); on the flagship that moves the logits by a few 1e-3 of
+    their largest value and flips pixels of the argmax."""
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+
+
 @torch.inference_mode()
 def inference_model(model: torch.nn.Module, img, batch_size: int = 1,
                     impl: Optional[str] = None) -> Union[dict, Sequence[dict]]:
@@ -138,7 +156,14 @@ def inference_model(model: torch.nn.Module, img, batch_size: int = 1,
     returns dict(s) with ``pred_sem_seg`` (H, W) int32, ``seg_logits``
     (H, W, C) float32 and ``metainfo``.  Same-shape inputs run in batches of
     ``batch_size``.  ``impl`` selects the kernels (``'cuda'``) or the plain
-    module forms (``'plain'``); ``None`` follows the model's device."""
+    module forms (``'plain'``); ``None`` follows the model's device.  The
+    model runs in full float32 (:func:`float32_math`), whatever the
+    caller's TF32 flags."""
+    with float32_math():
+        return _inference(model, img, batch_size, impl)
+
+
+def _inference(model, img, batch_size, impl):
     data, is_batch = _prepare_data(img, model.cfg)
     device = next(model.parameters()).device
     groups: Dict = {}

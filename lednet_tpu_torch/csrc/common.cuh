@@ -32,6 +32,28 @@ inline unsigned ceil_div(long long a, long long b) {
   return static_cast<unsigned>((a + b - 1) / b);
 }
 
+// cp.async copies global -> shared; an invalid source copies zeros.
+__device__ __forceinline__ void cp_async_f32(float* dst, const float* src,
+                                             bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+// 16 bytes; dst and src 16-byte aligned.
+__device__ __forceinline__ void cp_async_f32x4(float* dst, const float* src,
+                                               bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
 // Up to four dilation rates, passed to a kernel by value.
 struct Rates {
   int r[4];

@@ -1,109 +1,284 @@
-// Kernel C: a shared-memory-tiled 3x3 / stride 1 / pad 1 convolution at
-// C = 32 with the eval BatchNorm folded in, fused bias, optional residual
-// and ReLU:  out = relu(conv(x, w) + bias [+ res]).
-// Four launches make the stem's two BasicBlocks and its trailing ReLU:
-//   h = relu(conv(x) + b0); b1 = relu(conv(h) + b1 + x)
-//   h = relu(conv(b1) + b2); out = relu(conv(h) + b3 + b1)
+// Kernel C: the stem's two BasicBlocks and trailing ReLU at 1/4 scale, four
+// 3x3 / stride 1 / pad 1 convs at C = 32 (or 16) with the eval BatchNorm
+// folded, fused bias, two residuals and ReLU:
+//   h = relu(conv0(x) + b0);  b1 = relu(conv1(h) + b1 + x)
+//   h = relu(conv2(b1) + b2); out = relu(conv3(h) + b3 + b1)
 //
 // Replaces the TPU kernel lednet_tpu/ops/pallas/conv_block.py:73
 // (basic_pair_packed, through basic_pair :126), which packs four pixels into
-// 128 lanes so that the 32-channel convs fill the MXU and keeps all four
-// convs in VMEM.  That packing exists for the TPU's lane width; here each
-// conv is a direct convolution over tiles in shared memory, and the two
-// intermediates go through device memory (fusing the four launches is later
-// work).
+// 128 lanes so that the 32-channel convs fill the MXU and keeps the whole
+// chain in VMEM (_pair_kernel :48-70).
 //
-// Bound: operations (2*9*32*32 f32 flops per pixel and conv against 256 B of
-// traffic).  Design: a block computes 32 x 8 output pixels for COT = 32
-// output channels (32 accumulators per thread); input channels are streamed
-// through shared memory in chunks of 8 channels with a one-pixel halo
-// (8 x 10 x 34 floats) together with the matching folded weights
-// ([ci*9 + tap][COT], broadcast reads).
-#include "common.cuh"
+// Bound on the H100: operations.  At the flagship's 1 x 32 x 256 x 256 the
+// four convs are 4.83 GFLOP; in 3xTF32 that is three TF32 products each,
+// 14.5 GFLOP / 495 TFLOP/s = 0.029 ms, against 0.005 ms of bytes (x, out).
+//
+// Design: one launch runs a chain of L consecutive convs (L = 1, 2 or 4;
+// conv0 names the first) on a 16 x 32 output tile (16 x 16 for L = 1 and
+// 4), through the 3xTF32 tensor-core core of conv3x3_core.cuh.  The tile's
+// input with an L-pixel halo is staged with cp.async (16-byte copies of
+// aligned row spans where the width allows); each conv of the chain
+// computes its output over the tile grown by the halo the rest of the chain
+// still needs, keeps it in shared memory (zero outside the image: the next
+// conv's padding) and the last one writes the tile to global memory.
+// Residuals come from the chain's own buffers (or, for L = 1, from global
+// memory).  The chain's weights stream through a ring of two chunk slots
+// (one chunk = 8 input channels x 9 taps of B fragments), each refilled by
+// cp.async as soon as every warp is done with it, so the next chunk's loads
+// overlap this chunk's MMAs.
+//   L = 1: four launches, no recompute, two CTAs per SM;
+//   L = 2: one launch per BasicBlock, h kept on chip, 10% recompute, one
+//          wave of 128 CTAs at the flagship's 256 x 256;
+//   L = 4: one launch, 43% recompute, 221 KB of shared memory.
+// The op's variant is chosen in ops/kernels/conv_block.py (PAIR_CHAIN).
+#include "conv3x3_core.cuh"
 
 namespace lednet {
 
-constexpr int kTileW = 32, kTileH = 8, kCot = 32, kChunk = 8;
+template <int C, int L>
+struct Chain {
+  static constexpr int NT = C / 8, CH = C / 8;
+  // output tile: 16 x 32 for L = 2 (one wave of 128 CTAs at 256 x 256);
+  // 16 x 16 for L = 1 (two CTAs per SM) and L = 4 (whose halos would not
+  // fit with 32 columns)
+  static constexpr int TH = 16, TW = L == 2 ? 32 : 16;
+  static constexpr int S = 2;                        // weight ring slots
+  // input region of stage s: the tile with an (L - s)-pixel halo
+  __host__ __device__ static constexpr int in_h(int s) { return TH + 2 * (L - s); }
+  __host__ __device__ static constexpr int in_w(int s) { return TW + 2 * (L - s); }
+  // its rows in shared memory: stage 0's (copied from x) start at the
+  // 16-byte aligned column ow0 - 4 and span whole float4s, the region
+  // starting coff(0) = 4 - L columns in; the chain's own buffers hold just
+  // the region
+  __host__ __device__ static constexpr int rw(int s) {
+    return s == 0 ? (TW + L + 4 + 3) / 4 * 4 : in_w(s);
+  }
+  __host__ __device__ static constexpr int coff(int s) { return s == 0 ? 4 - L : 0; }
+  __host__ __device__ static constexpr int cs(int s) { return pad_cs(in_h(s) * rw(s)); }
+  // stage 3's input (L = 4) reuses stage 0's buffer: x is dead by then
+  __host__ __device__ static constexpr int phys(int s) { return (L == 4 && s == 3) ? 0 : s; }
+  __host__ __device__ static constexpr int nbuf() { return L < 3 ? L : 3; }
+  __host__ __device__ static constexpr int off(int p) { return p == 0 ? 0 : off(p - 1) + C * cs(p - 1); }
+  static constexpr int smem_bytes() {
+    return S * chunk_frags(C) * 16 + off(nbuf()) * 4;
+  }
+};
 
-__global__ void __launch_bounds__(kTileW * kTileH)
-conv3x3_c32_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                   const float* __restrict__ bias,
-                   const float* __restrict__ res, float* __restrict__ out,
-                   int C, int H, int W, int cgroups) {
-  __shared__ float tile[kChunk][kTileH + 2][kTileW + 2];
-  __shared__ float ws[kChunk * 9][kCot];
-  const int b = blockIdx.z / cgroups;
-  const int co0 = (blockIdx.z % cgroups) * kCot;
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * kTileW + tx;
-  const int ow0 = blockIdx.x * kTileW, oh0 = blockIdx.y * kTileH;
-  const size_t plane = static_cast<size_t>(H) * W;
-  const float* xb = x + static_cast<size_t>(b) * C * plane;
-  constexpr int kTileElems = kChunk * (kTileH + 2) * (kTileW + 2);
+template <int C, int L>
+struct ChainCtx {
+  float4* ring;
+  float* bufs;
+  const float* xb;
+  const float* resb;
+  float* outb;
+  const float4* wf;
+  const float* bias;
+  int H, W, oh0, ow0, conv0, tid, lane, warp;
+  size_t plane;
 
-  float acc[kCot];
-#pragma unroll
-  for (int j = 0; j < kCot; ++j) acc[j] = 0.f;
-
-  for (int c0 = 0; c0 < C; c0 += kChunk) {
-    for (int i = tid; i < kTileElems; i += kTileW * kTileH) {
-      const int cc = i / ((kTileH + 2) * (kTileW + 2));
-      const int r = (i / (kTileW + 2)) % (kTileH + 2);
-      const int col = i % (kTileW + 2);
-      const int ci = c0 + cc, ih = oh0 + r - 1, iw = ow0 + col - 1;
-      tile[cc][r][col] = (ci < C && ih >= 0 && ih < H && iw >= 0 && iw < W)
-                             ? xb[ci * plane + static_cast<size_t>(ih) * W + iw]
-                             : 0.f;
-    }
-    for (int i = tid; i < kChunk * 9 * kCot; i += kTileW * kTileH) {
-      const int co = i % kCot, k = i / kCot;  // k = cc * 9 + tap
-      const int ci = c0 + k / 9, cog = co0 + co;
-      ws[k][co] = (ci < C && cog < C)
-                      ? w[(static_cast<size_t>(cog) * C + ci) * 9 + k % 9]
-                      : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int cc = 0; cc < kChunk; ++cc) {
-#pragma unroll
-      for (int ky = 0; ky < 3; ++ky) {
-#pragma unroll
-        for (int kx = 0; kx < 3; ++kx) {
-          const float v = tile[cc][ty + ky][tx + kx];
-          const float* wk = ws[cc * 9 + ky * 3 + kx];
-#pragma unroll
-          for (int j = 0; j < kCot; ++j) acc[j] = fmaf(v, wk[j], acc[j]);
+  // cp.async group g: weight chunk g of the chain into slot g % S and, for
+  // the first conv, input chunk g of the tile with its L-pixel halo: as
+  // float4s when rows are 16-byte aligned (W % 4 == 0), else as floats.
+  __device__ __forceinline__ void issue(int g) const {
+    using K = Chain<C, L>;
+    constexpr int G = L * K::CH, RW = K::rw(0), A0 = K::in_h(0) * RW;
+    if (g < G) {
+      const int i = conv0 + g / K::CH, q = g % K::CH;
+      stage_frags(ring + (g % K::S) * chunk_frags(C),
+                  wf + (static_cast<size_t>(i) * K::CH + q) * chunk_frags(C),
+                  chunk_frags(C), tid);
+      if (g < K::CH) {
+        const int gx0 = ow0 - 4;
+        if ((W & 3) == 0) {
+          for (int e = tid; e < 8 * A0 / 4; e += kConvThreads) {
+            const int c = 8 * q + e / (A0 / 4), rv = e % (A0 / 4);
+            const int r = rv / (RW / 4), gx = gx0 + 4 * (rv % (RW / 4));
+            const int gy = oh0 - L + r;
+            const bool ok = gy >= 0 && gy < H && gx >= 0 && gx < W;
+            cp_async_f32x4(
+                bufs + c * K::cs(0) + 4 * rv,
+                ok ? xb + c * plane + static_cast<size_t>(gy) * W + gx : xb,
+                ok);
+          }
+        } else {
+          for (int e = tid; e < 8 * A0; e += kConvThreads) {
+            const int c = 8 * q + e / A0, rc = e % A0;
+            const int gy = oh0 - L + rc / RW, gx = gx0 + rc % RW;
+            const bool ok = gy >= 0 && gy < H && gx >= 0 && gx < W;
+            cp_async_f32(
+                bufs + c * K::cs(0) + rc,
+                ok ? xb + c * plane + static_cast<size_t>(gy) * W + gx : xb,
+                ok);
+          }
         }
       }
     }
+    cp_async_commit();
+  }
+};
+
+// Stage s of the chain: conv (conv0 + s) from buffer phys(s) to buffer
+// phys(s + 1), or to global memory for the last stage.
+template <int C, int L, int s>
+__device__ __forceinline__ void chain_stage(const ChainCtx<C, L>& x) {
+  using K = Chain<C, L>;
+  constexpr int NT = K::NT;
+  constexpr int OW = K::in_w(s) - 2, OH = K::in_h(s) - 2;
+  constexpr int RW = K::rw(s), CO = K::coff(s);      // input row layout
+  // 16-pixel m-tiles of this stage's output, warp w taking w, w + 8, ...
+  constexpr int NPIX = OH * OW, MT = (NPIX + 16 * 8 - 1) / (16 * 8);
+  const int g8 = x.lane >> 2, t = x.lane & 3;
+
+  int poff[MT][2];
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      int p = (x.warp + 8 * m) * 16 + g8 + 8 * h;
+      p = p < NPIX ? p : 0;
+      poff[m][h] = (p / OW) * RW + p % OW + CO;
+    }
+
+  float acc[MT][NT][4];
+  zero_acc(acc);
+  const float* in = x.bufs + K::off(K::phys(s));
+#pragma unroll 1
+  for (int q = 0; q < K::CH; ++q) {
+    const int g = s * K::CH + q;
+    cp_async_wait<K::S - 1>();
     __syncthreads();
+    conv_chunk<NT, MT, 3>(acc, in + 8 * q * K::cs(s), K::cs(s), poff, RW, 1,
+                          2, x.ring + (g % K::S) * chunk_frags(C), x.lane);
+    __syncthreads();
+    x.issue(g + K::S);
   }
 
-  const int ow = ow0 + tx, oh = oh0 + ty;
-  if (ow >= W || oh >= H) return;
-  const size_t base = static_cast<size_t>(b) * C * plane +
-                      static_cast<size_t>(oh) * W + ow;
+  // epilogue: bias, residual (odd convs: the block's input), ReLU
+  const int i = x.conv0 + s, r = L - 1 - s;
+  float bv[NT][2];
 #pragma unroll
-  for (int j = 0; j < kCot; ++j) {
-    const int co = co0 + j;
-    if (co >= C) break;
-    float v = acc[j] + bias[co];
-    if (res != nullptr) v += res[base + co * plane];
-    out[base + co * plane] = fmaxf(v, 0.f);
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) bv[n][j] = __ldg(x.bias + i * C + n * 8 + 2 * t + j);
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int p = (x.warp + 8 * m) * 16 + g8 + 8 * h;
+      if (p >= NPIX) continue;
+      const int py = p / OW, px = p % OW;
+      const int gy = x.oh0 - r + py, gx = x.ow0 - r + px;
+      const bool inside = gy >= 0 && gy < x.H && gx >= 0 && gx < x.W;
+      const size_t gofs = static_cast<size_t>(gy) * x.W + gx;
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int co = n * 8 + 2 * t + j;
+          float v = acc[m][n][2 * h + j] + bv[n][j];
+          if (i & 1) {
+            if constexpr (s >= 1) {
+              v += x.bufs[K::off(K::phys(s - 1)) + co * K::cs(s - 1) +
+                          (py + 2) * K::rw(s - 1) + px + 2 + K::coff(s - 1)];
+            } else if (inside) {
+              v += x.resb[co * x.plane + gofs];
+            }
+          }
+          v = fmaxf(v, 0.f);
+          if constexpr (s < L - 1) {
+            x.bufs[K::off(K::phys(s + 1)) + co * K::cs(s + 1) + p] =
+                inside ? v : 0.f;
+          } else if (inside) {
+            x.outb[co * x.plane + gofs] = v;
+          }
+        }
+    }
   }
+}
+
+template <int C, int L>
+__global__ void __launch_bounds__(kConvThreads, L == 1 ? 2 : 1)
+basic_chain_kernel(const float* __restrict__ x, const float4* __restrict__ wf,
+                   const float* __restrict__ bias,
+                   const float* __restrict__ res, float* __restrict__ out,
+                   int H, int W, int conv0) {
+  using K = Chain<C, L>;
+  extern __shared__ float4 smem4[];
+  ChainCtx<C, L> ctx;
+  ctx.ring = smem4;
+  ctx.bufs = reinterpret_cast<float*>(smem4 + K::S * chunk_frags(C));
+  ctx.plane = static_cast<size_t>(H) * W;
+  const size_t boff = static_cast<size_t>(blockIdx.z) * C * ctx.plane;
+  ctx.xb = x + boff;
+  ctx.resb = res == nullptr ? nullptr : res + boff;
+  ctx.outb = out + boff;
+  ctx.wf = wf;
+  ctx.bias = bias;
+  ctx.H = H;
+  ctx.W = W;
+  ctx.oh0 = blockIdx.y * K::TH;
+  ctx.ow0 = blockIdx.x * K::TW;
+  ctx.conv0 = conv0;
+  ctx.tid = threadIdx.x;
+  ctx.lane = threadIdx.x & 31;
+  ctx.warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int g = 0; g < K::S; ++g) ctx.issue(g);
+  chain_stage<C, L, 0>(ctx);
+  if constexpr (L > 1) chain_stage<C, L, 1>(ctx);
+  if constexpr (L > 2) chain_stage<C, L, 2>(ctx);
+  if constexpr (L > 3) chain_stage<C, L, 3>(ctx);
+}
+
+template <int C, int L>
+int launch_chain(const float* x, const void* wf, const float* bias,
+                 const float* res, float* out, int B, int H, int W, int conv0,
+                 int th, int tw, int smem, cudaStream_t stream) {
+  using K = Chain<C, L>;
+  if (th != K::TH || tw != K::TW || smem != K::smem_bytes() ||
+      conv0 < 0 || conv0 + L > 4 || (conv0 % L) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = basic_chain_kernel<C, L>;
+  // once per instantiation and device (smem is fixed for an instantiation)
+  static unsigned smem_set = 0;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (dev >= 32 || !(smem_set >> dev & 1u)) {
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (dev < 32) smem_set |= 1u << dev;
+  }
+  dim3 grid(ceil_div(W, K::TW), ceil_div(H, K::TH), B);
+  kernel<<<grid, kConvThreads, smem, stream>>>(
+      x, static_cast<const float4*>(wf), bias, res, out, H, W, conv0);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace lednet
 
-LEDNET_API int lednet_conv3x3_c32(const float* x, const float* w,
+// One launch of L chained convs (conv0 .. conv0 + L - 1) of the pair.
+// wf: B fragments of all four convs (conv3x3.py::conv_fragments, stacked);
+// bias (4, C); res: the residual of conv0 when L = 1 and conv0 is odd.
+// th, tw and smem are the Python geometry (conv3x3.py::chain_config); a
+// mismatch with the compiled one is refused.
+LEDNET_API int lednet_basic_chain(const float* x, const void* wf,
                                   const float* bias, const float* res,
                                   float* out, int B, int C, int H, int W,
+                                  int conv0, int L, int th, int tw, int smem,
                                   cudaStream_t stream) {
   using namespace lednet;
-  const int cgroups = (C + kCot - 1) / kCot;
-  dim3 block(kTileW, kTileH);
-  dim3 grid(ceil_div(W, kTileW), ceil_div(H, kTileH), B * cgroups);
-  conv3x3_c32_kernel<<<grid, block, 0, stream>>>(x, w, bias, res, out, C, H,
-                                                 W, cgroups);
-  return static_cast<int>(cudaGetLastError());
+#define LEDNET_CHAIN(CC, LL)                                                 \
+  if (C == CC && L == LL)                                                    \
+    return launch_chain<CC, LL>(x, wf, bias, res, out, B, H, W, conv0, th,   \
+                                tw, smem, stream);
+  LEDNET_CHAIN(32, 1)
+  LEDNET_CHAIN(32, 2)
+  LEDNET_CHAIN(32, 4)
+  LEDNET_CHAIN(16, 1)
+  LEDNET_CHAIN(16, 2)
+  LEDNET_CHAIN(16, 4)
+#undef LEDNET_CHAIN
+  return static_cast<int>(cudaErrorInvalidValue);
 }

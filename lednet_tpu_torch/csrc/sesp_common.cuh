@@ -28,27 +28,6 @@ namespace lednet {
 
 constexpr int kThreads = 256;   // every launch of kernels D and E
 
-__device__ __forceinline__ void cp_async_f32(float* dst, const float* src,
-                                             bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-               "l"(src), "r"(valid ? 4 : 0));
-}
-// 16 bytes; dst and src 16-byte aligned.
-__device__ __forceinline__ void cp_async_f32x4(float* dst, const float* src,
-                                               bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 __host__ __device__ inline int round4(int v) { return (v + 3) & ~3; }
 
 struct PyrTile {

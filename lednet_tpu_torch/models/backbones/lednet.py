@@ -31,6 +31,8 @@ from lednet_tpu_torch.models.layers import (BasicBlock, ConvModule,
 from lednet_tpu_torch.models.seam import SEAM
 from lednet_tpu_torch.ops.kernels import basic_pair, stem_convs
 from lednet_tpu_torch.ops.kernels._build import resolve_impl
+from lednet_tpu_torch.ops.kernels.conv3x3 import (pair_fragments,
+                                                  stem_fragments)
 from lednet_tpu_torch.ops.resize import resize_bilinear
 from lednet_tpu_torch.registry import MODELS
 
@@ -86,15 +88,18 @@ class LEDNet(nn.Module):
         """Eval stem through kernels B and C with BatchNorm folded (their
         plain versions with ``impl='plain'``): returns x1 (1/2), x2 (1/4)
         and the stem blocks' output at 1/4."""
-        w1, b1, w2, b2, ws, bs = cached_operands(
+        w1, b1, w2, b2, ws, bs, stem_f, pair_f = cached_operands(
             self, module_tensors(self.stem_conv1, self.stem_conv2,
                                  self.stem_block1, self.stem_block2),
             self._fold_stem)
-        x1, x2 = stem_convs(x, w1, b1, w2, b2, impl=impl)
-        return x1, x2, basic_pair(x2, ws, bs, impl=impl)
+        x1, x2 = stem_convs(x, w1, b1, w2, b2, impl=impl, frags=stem_f)
+        return x1, x2, basic_pair(x2, ws, bs, impl=impl, frags=pair_f)
 
     def _fold_stem(self):
-        """Kernel B's and C's operands: (w1, b1, w2, b2, ws, bs)."""
+        """Kernel B's and C's operands: (w1, b1, w2, b2, ws, bs, stem_f,
+        pair_f), with the weights of both kernels also split into TF32
+        hi/lo parts in mma fragment order (``stem_f``, ``pair_f``; None for
+        a width that is not a multiple of 8)."""
         w1, b1 = fold_conv_bn(self.stem_conv1.conv, self.stem_conv1.norm)
         w2, b2 = fold_conv_bn(self.stem_conv2.conv, self.stem_conv2.norm)
         ws, bs = [], []
@@ -103,7 +108,11 @@ class LEDNet(nn.Module):
                 w, b = fold_conv_bn(cv.conv, cv.norm)
                 ws.append(w)
                 bs.append(b)
-        return w1, b1, w2, b2, torch.stack(ws), torch.stack(bs)
+        ws, bs = torch.stack(ws), torch.stack(bs)
+        splittable = w2.shape[0] % 8 == 0 and w1.shape[1] == 3
+        return (w1, b1, w2, b2, ws, bs,
+                stem_fragments(w1, w2) if splittable else None,
+                pair_fragments(ws) if splittable else None)
 
     def forward(self, x, impl: Optional[str] = None):
         """x: (B, 3, H, W) float32 or bfloat16 (promoted to float32)."""

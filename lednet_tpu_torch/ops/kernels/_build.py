@@ -41,8 +41,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     'lednet_normalize_image': [_P, _P, _I, _I, _I, _F, _F, _F, _F, _F, _F,
                                _I, _I, _P],
-    'lednet_stem_conv3x3_s2': [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    'lednet_conv3x3_c32': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    'lednet_stem_fused': [_P] * 7 + [_I] * 10 + [_P],
+    'lednet_basic_chain': [_P] * 5 + [_I] * 9 + [_P],
     'lednet_sesp_reduce': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     'lednet_sesp_fused': [_P] * 11 + [_I] * 17 + [_P],
     'lednet_sesp_pyramid': [_P] * 4 + [_I] * 13 + [_P],

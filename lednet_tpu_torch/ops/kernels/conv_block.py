@@ -1,13 +1,17 @@
 """Kernel C: the stem's two 32-channel BasicBlocks and trailing ReLU at 1/4
-scale, as four launches of one tiled 3x3 conv with fused bias, optional
-residual and ReLU (BatchNorm folded):
+scale, four 3x3 convs with fused bias, residuals and ReLU (BatchNorm
+folded):
 
     h = relu(conv(x) + b0);   b1 = relu(conv(h) + b1 + x)
     h = relu(conv(b1) + b2);  out = relu(conv(h) + b3 + b1)
 
 Replaces ``lednet_tpu/ops/pallas/conv_block.py:73`` (``basic_pair_packed``,
 reached through ``basic_pair`` :126); its width packing exists for 128-lane
-TPU tiles.  CUDA source: ``lednet_tpu_torch/csrc/conv_block.cu``.
+TPU tiles.  CUDA source: ``lednet_tpu_torch/csrc/conv_block.cu``, the
+3xTF32 tensor-core conv core run as chains of L convs per launch: L = 1
+(four launches), 2 (one per BasicBlock, h on chip) or 4 (one launch).
+``PAIR_CHAIN`` is the one the op runs; the others stay selectable with
+``chain=`` so that ``chip_smoke.py`` can check and time them.
 """
 from __future__ import annotations
 
@@ -16,8 +20,14 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from lednet_tpu_torch.ops.kernels._build import (check, library, require,
+from lednet_tpu_torch.ops.kernels._build import (check, library, ptr, require,
                                                  resolve_impl, stream_ptr)
+from lednet_tpu_torch.ops.kernels.conv3x3 import (chain_config,
+                                                  check_channels,
+                                                  pair_fragments)
+
+CHAINS = (1, 2, 4)          # convs per launch that the kernel takes
+PAIR_CHAIN = 2              # the variant on the path: one launch per block
 
 
 def basic_pair_plain(x: torch.Tensor, w: torch.Tensor,
@@ -31,31 +41,48 @@ def basic_pair_plain(x: torch.Tensor, w: torch.Tensor,
 
 
 def basic_pair(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-               impl: Optional[str] = None) -> torch.Tensor:
-    """The BasicBlock pair + trailing ReLU on a (B, C, H, W) float32 map."""
+               impl: Optional[str] = None,
+               frags: Optional[torch.Tensor] = None,
+               chain: Optional[int] = None) -> torch.Tensor:
+    """The BasicBlock pair + trailing ReLU on a (B, C, H, W) float32 map.
+
+    ``frags``: the kernel's pre-split weights, ``pair_fragments(w)``
+    (computed here when None; the model caches them with its folded
+    weights).  ``chain``: convs per launch (``CHAINS``; default
+    ``PAIR_CHAIN``).  The plain version reads neither."""
     if resolve_impl(impl, x) == 'plain':
         return basic_pair_plain(x, w, b)
     require(x, 'x', torch.float32)
     if x.dim() != 4:
         raise ValueError(f'x must be NCHW, got {tuple(x.shape)}')
     B, C, H, W = x.shape
+    check_channels(C)
     require(w, 'w', torch.float32, (4, C, C, 3, 3), x.device)
     require(b, 'b', torch.float32, (4, C), x.device)
+    frags = pair_fragments(w) if frags is None else frags
+    require(frags, 'frags', torch.float32, (4, C // 8, 9, C // 8, 32, 4),
+            x.device)
+    L = PAIR_CHAIN if chain is None else chain
+    cfg = chain_config(B, C, H, W, L)
     lib = library()
     stream = stream_ptr(x)
 
-    def conv(v, i, res):
+    def launch(v, conv0, res):
         out = torch.empty_like(x)
-        check(lib.lednet_conv3x3_c32(
-            v.data_ptr(), w[i].data_ptr(), b[i].data_ptr(),
-            None if res is None else res.data_ptr(), out.data_ptr(), B, C, H,
-            W, stream), 'basic_pair')
+        check(lib.lednet_basic_chain(
+            v.data_ptr(), frags.data_ptr(), b.data_ptr(), ptr(res),
+            out.data_ptr(), B, C, H, W, conv0, L, cfg.th, cfg.tw, cfg.smem,
+            stream), 'basic_pair')
         return out
 
-    h = conv(x, 0, None)
-    b1 = conv(h, 1, x)
-    h = conv(b1, 2, None)
-    out = conv(h, 3, b1)
+    if L == 1:
+        h = launch(x, 0, None)
+        b1 = launch(h, 1, x)
+        out = launch(launch(b1, 2, None), 3, b1)
+    else:
+        out = x
+        for conv0 in range(0, 4, L):
+            out = launch(out, conv0, None)
     basic_pair.launches += 1
     return out
 

@@ -6,12 +6,16 @@ bfloat16 stem input) for the convs, the SESP block and the SESP pyramid.
 
 The CUDA kernels themselves run only on a GPU; ``chip_smoke.py`` holds each
 of them against these plain versions there.  Here the tests also pin the
-dispatch rule: asking for the kernel on a CPU tensor raises.
+dispatch rule (asking for the kernel on a CPU tensor raises), the host side
+of kernels B's and C's 3xTF32 tensor-core convs (the TF32 split of the
+weights, their mma fragment order, an emulation of the arithmetic within
+1e-6 of the float32 conv) and every kernel's launch geometry.
 """
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from lednet_tpu.ops.pallas.conv_block import basic_pair_packed
 from lednet_tpu.ops.pallas.s2d_input import normalize_s2d
@@ -24,6 +28,8 @@ from lednet_tpu.ops.s2d import (depth_to_space, pack_s1_conv_weights,
                                 pack_s2_conv_weights, space_to_depth)
 from lednet_tpu_torch.ops.kernels import (basic_pair, normalize_image,
                                           sesp_block, sesp_pyramid, stem_convs)
+from lednet_tpu_torch.ops.kernels import conv3x3
+from lednet_tpu_torch.ops.kernels.conv_block import CHAINS
 from lednet_tpu_torch.ops.kernels.sesp_pyramid import (SMEM_BYTES, THREADS,
                                                        bn_fold, dense_grouped,
                                                        fused_config,
@@ -110,6 +116,134 @@ def test_basic_pair_plain_matches_pallas(rng):
     out = basic_pair(nchw(x), torch.stack([_oihw(w) for w in ws]),
                      torch.stack([_t(b) for b in bs]))
     assert rel_err(nhwc(out), np.asarray(ref)) < 1e-5
+
+
+# ------------------------------------------------ B and C: the 3xTF32 core
+TOL_KERNEL = 1e-5     # chip_smoke.py: kernels against their plain versions
+
+
+def _low13(t):
+    return (t.contiguous().view(torch.int32) & 0x1FFF).abs().max().item()
+
+
+def _folded(rng, cout, cin):
+    """A conv weight with a seeded eval BatchNorm folded in, as the model's
+    ``_fold_stem`` makes them (kaiming scale, running var in 0.5 .. 1.5)."""
+    w = rng.standard_normal((cout, cin, 3, 3)) * np.sqrt(2.0 / (cout * 9))
+    scale = 1 + 0.1 * rng.standard_normal(cout)
+    var = rng.uniform(0.5, 1.5, cout)
+    return _t(w * (scale / np.sqrt(var + 1e-5))[:, None, None, None])
+
+
+def test_tf32_split_of_the_weights(rng):
+    """hi has its low 13 mantissa bits zero (a TF32 value), lo too, and
+    hi + lo gives back the weight within 2^-21 of it."""
+    w = _folded(rng, 32, 32) * _t(10.0 ** rng.uniform(-3, 3, (32, 1, 1, 1)))
+    hi, lo = conv3x3.tf32_split(w)
+    assert _low13(hi) == 0 and _low13(lo) == 0
+    err = ((hi.double() + lo.double() - w.double()).abs() / w.double().abs())
+    assert err.max().item() <= 2.0 ** -21
+    # rounding to nearest: hi is never further than half a TF32 ulp
+    assert ((w - hi).abs() / w.abs()).max().item() <= 2.0 ** -11
+
+
+@pytest.mark.parametrize('C', [16, 32])
+def test_conv_fragments_round_trip_and_order(rng, C):
+    """Unpacking the fragment order gives back the split weights exactly,
+    and lane 4 g + t of (chunk q, tap, n-tile) holds
+    b0 = W[8 n + g, 8 q + t, tap], b1 = W[8 n + g, 8 q + t + 4, tap]."""
+    w = _folded(rng, C, C)
+    f = conv3x3.conv_fragments(w)
+    assert f.shape == (C // 8, 9, C // 8, 32, 4) and f.is_contiguous()
+    hi, lo = conv3x3.tf32_split(w)
+    uh, ul = conv3x3.unpack_conv_fragments(f)
+    assert torch.equal(uh, hi) and torch.equal(ul, lo)
+    for q, tap, n, lane in [(0, 0, 0, 0), (C // 8 - 1, 8, C // 8 - 1, 31),
+                            (1, 4, 0, 13)]:
+        g, t = divmod(lane, 4)
+        ky, kx = divmod(tap, 3)
+        assert f[q, tap, n, lane, 0] == hi[8 * n + g, 8 * q + t, ky, kx]
+        assert f[q, tap, n, lane, 1] == hi[8 * n + g, 8 * q + t + 4, ky, kx]
+        assert f[q, tap, n, lane, 2] == lo[8 * n + g, 8 * q + t, ky, kx]
+        assert f[q, tap, n, lane, 3] == lo[8 * n + g, 8 * q + t + 4, ky, kx]
+    w1 = _folded(rng, C, 3)
+    f1 = conv3x3.conv1_fragments(w1)
+    assert f1.shape == (4, C // 8, 32, 4)
+    h1, l1 = conv3x3.tf32_split(w1)
+    u1h, u1l = conv3x3.unpack_conv1_fragments(f1)
+    assert torch.equal(u1h, h1) and torch.equal(u1l, l1)
+    k = f1.reshape(4, C // 8, 8, 4, 4)          # k >= 27 is zero padding
+    assert (k[3, :, :, 3, 0] == 0).all() and (k[3, :, :, :, 1] == 0).all()
+
+
+def _emulated_3xtf32(x, w, stride, x_exact=False):
+    """The kernels' arithmetic: a = a_hi + a_lo and w = w_hi + w_lo split to
+    TF32, a_lo w_hi + a_hi w_lo + a_hi w_hi summed in float32 (a_lo w_lo
+    dropped; a_lo = 0 for an input exact in TF32, such as bf16)."""
+    xh, xl = conv3x3.tf32_split(x)
+    wh, wl = conv3x3.tf32_split(w)
+    conv = lambda a, b: F.conv2d(a, b, stride=stride, padding=1)
+    out = conv(xh, wl) + conv(xh, wh)
+    return out if x_exact else conv(xl, wh) + out
+
+
+@pytest.mark.parametrize('stride', [1, 2])
+def test_3xtf32_conv_emulation_holds_the_kernel_tolerance(rng, stride):
+    """At flagship-like statistics (C = 32, 64 x 64, folded weights from a
+    seeded BatchNorm, a ReLU'd input) the 3xTF32 arithmetic stays within a
+    tenth of chip_smoke.py's kernel tolerance of the float32 conv, and the
+    bf16-input form of stem_conv1 (two products) does too."""
+    x = F.relu(_t(rng.standard_normal((1, 32, 64, 64))))
+    w = _folded(rng, 32, 32)
+    ref = F.conv2d(x.double(), w.double(), stride=stride, padding=1)
+    emu = _emulated_3xtf32(x, w, stride)
+    assert rel_err(emu.numpy(), ref.numpy()) <= TOL_KERNEL / 10
+    f32 = F.conv2d(x, w, stride=stride, padding=1)
+    assert rel_err(emu.numpy(), f32.numpy()) <= TOL_KERNEL / 10
+    img = _t(rng.standard_normal((1, 3, 64, 64))).bfloat16().float()
+    w1 = _folded(rng, 32, 3)
+    ref1 = F.conv2d(img.double(), w1.double(), stride=2, padding=1)
+    emu1 = _emulated_3xtf32(img, w1, 2, x_exact=True)
+    assert rel_err(emu1.numpy(), ref1.numpy()) <= TOL_KERNEL / 10
+
+
+# kernel B's inputs and kernel C's maps: the flagship's, then the ragged
+# shapes chip_smoke.py checks on the card
+STEM_SHAPES = [(1, 1024, 1024, 32), (2, 250, 378, 32), (2, 200, 264, 32),
+               (2, 37, 45, 32), (1, 7, 9, 32), (2, 250, 378, 16)]
+PAIR_SHAPES = [(1, 256, 256, 32), (2, 37, 70, 32), (2, 36, 64, 32),
+               (1, 5, 11, 32), (2, 37, 70, 16)]
+
+
+@pytest.mark.parametrize('B,H,W,C', STEM_SHAPES)
+def test_stem_launch_config_fits_the_card(B, H, W, C):
+    """Kernel B: 256 threads, one persistent CTA per SM at most (and none
+    without a tile), its shared memory within 227 KB for a bf16 and a
+    float32 image, and tiles that cover x2."""
+    for bf16 in (True, False):
+        cfg = conv3x3.stem_config(B, C, H, W, bf16)
+        h2, w2 = -(-(-(-H // 2)) // 2), -(-(-(-W // 2)) // 2)
+        assert cfg.threads == conv3x3.THREADS == 256
+        assert cfg.smem <= conv3x3.SMEM_BYTES
+        assert cfg.tiles == B * -(-h2 // cfg.th) * -(-w2 // cfg.tw)
+        assert cfg.grid == (min(cfg.tiles, conv3x3.SMS), 1, 1)
+        assert cfg.th * cfg.tw == 16 * 8        # one m-tile per warp
+
+
+@pytest.mark.parametrize('B,H,W,C', PAIR_SHAPES)
+def test_pair_launch_configs_fit_the_card(B, H, W, C):
+    """Kernel C, every variant: 256 threads, a grid of tiles that covers the
+    map, and the weight ring plus every conv's input with its halo within
+    227 KB (two CTAs per SM for one conv per launch)."""
+    for L in CHAINS:
+        cfg = conv3x3.chain_config(B, C, H, W, L)
+        assert cfg.threads == 256 and cfg.smem <= conv3x3.SMEM_BYTES
+        assert cfg.grid == (-(-W // cfg.tw), -(-H // cfg.th), B)
+        assert cfg.grid[0] * cfg.tw >= W and cfg.grid[1] * cfg.th >= H
+        if L == 1:
+            assert 2 * (cfg.smem + 1024) <= 233472
+    with pytest.raises(ValueError, match='compiled for C'):
+        conv3x3.chain_config(1, 24, 16, 16, 2)
 
 
 # ------------------------------------------------------- D: SESP block

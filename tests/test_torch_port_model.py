@@ -128,3 +128,31 @@ def test_inference_model_crops_padding(pair):
     np.testing.assert_array_equal(res['pred_sem_seg'],
                                   res['seg_logits'].argmax(-1))
     assert res['metainfo']['ori_shape'] == (100, 156)
+
+
+def test_inference_model_runs_in_float32_and_restores_flags(pair,
+                                                            monkeypatch):
+    """``inference_model`` runs the model with TF32 off (cuDNN's default
+    float32 convs in TF32 change the flagship's logits by more than the
+    1e-3 bound on the card) and gives the caller's flags back."""
+    seen = []
+    model = pair['model']
+    predict = model.predict
+
+    def spy(*args, **kw):
+        seen.append((torch.backends.cudnn.allow_tf32,
+                     torch.backends.cuda.matmul.allow_tf32))
+        return predict(*args, **kw)
+    monkeypatch.setattr(model, 'predict', spy)
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    try:
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+        inference_model(model, _images((64, 64), seed=5)[0])
+        assert seen == [(False, False)]
+        assert torch.backends.cudnn.allow_tf32
+        assert torch.backends.cuda.matmul.allow_tf32
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved

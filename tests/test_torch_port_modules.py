@@ -25,6 +25,7 @@ from lednet_tpu.models.decode_heads import led_head as jhead
 from lednet_tpu_torch.models import aff, espnet, getb, layers, seam
 from lednet_tpu_torch.models.backbones.lednet import LEDNet
 from lednet_tpu_torch.models.decode_heads import led_head
+from lednet_tpu_torch.ops.kernels import conv3x3
 from test_torch_port_common import (jax_variables, load_port, nchw, nhwc,
                                     random_variables, rel_err)
 
@@ -213,6 +214,24 @@ def test_stem_fold_cache_follows_weight_changes(rng):
                 m.running_mean.normal_(0, 0.1, generator=gen)
     stem = lambda m: torch.nn.ModuleList([m.stem_conv1, m.stem_conv2,
                                           m.stem_block1, m.stem_block2])
-    _check_fold_cache(t, stem, lambda m, v: m.kernel_stem(v, 'plain')[2],
-                      lambda m, v: m.module_stem(v)[2],
+
+    def kernel(m, v):
+        """The kernel path, and kernels B's and C's cached pre-split weights
+        against a fresh fold of the current weights: the cached split and
+        fragment order follow every edit as the folded weights do."""
+        out = m.kernel_stem(v, 'plain')[2]
+        w1, _, w2, _, ws, _, (f1, f2), fp = m._operand_cache[1]
+        fresh = m._fold_stem()
+        for a, b in zip((w1, w2, ws), (fresh[0], fresh[2], fresh[4])):
+            assert torch.equal(a, b)
+        split = conv3x3.tf32_split
+        assert all(map(torch.equal, conv3x3.unpack_conv1_fragments(f1),
+                       split(fresh[0])))
+        assert all(map(torch.equal, conv3x3.unpack_conv_fragments(f2),
+                       split(fresh[2])))
+        for i in range(4):
+            assert all(map(torch.equal, conv3x3.unpack_conv_fragments(fp[i]),
+                           split(fresh[4][i])))
+        return out
+    _check_fold_cache(t, stem, kernel, lambda m, v: m.module_stem(v)[2],
                       nchw(_x(rng, 1, 24, 32, 3)))

@@ -36,8 +36,8 @@ CONFIG = 'configs/LED_Net/lednet_80k_cityscapes-1024x1024.py'
 # the port's ops -> the __global__ functions of lednet_tpu_torch/csrc
 PORT_KERNELS = {
     'normalize_image': ('normalize_kernel',),
-    'stem_convs': ('stem_conv3x3_s2_kernel',),
-    'basic_pair': ('conv3x3_c32_kernel',),
+    'stem_convs': ('stem_fused_kernel',),
+    'basic_pair': ('basic_chain_kernel',),
     'sesp_block': ('sesp_reduce_kernel', 'sesp_fused_kernel'),
     'sesp_pyramid': ('sesp_pyramid_kernel',),
 }
