@@ -15,8 +15,7 @@ printing one flushed line with its seconds:
 3. kernels: one forward records every kernel call of the main path; each
    call is re-run through the kernel and through its plain PyTorch version on
    the same inputs and held to max|kernel - plain| <= TOL * max|plain|
-   (normalization: bit-exact); kernel C's recorded calls also through its
-   variants off the path (1 and 4 convs per launch);
+   (normalization: bit-exact);
 3b. pyramid: kernel E (``sesp_pyramid``), which no model calls, at each
    distinct pyramid shape of the SESP calls recorded in phase 3 (n, H, W,
    rates, stride; their dw1/dw2 and a seeded random reduced map), with the
@@ -24,7 +23,7 @@ printing one flushed line with its seconds:
 3c. ragged: kernels B and C called directly at shapes the main path (which
    pads to /32) never gives them: batch 2, sizes that are not multiples of
    the tiles (odd and even), maps smaller than one tile, bf16 and float32
-   stem inputs, the 16-channel width, every variant of C; held like phase 3;
+   stem inputs, the 16-channel width; held like phase 3;
 4. model: launch counts set to 0, ``inference_model`` on 4 seeded
    1024x1024 BGR uint8 images through the kernels, counts read (every kernel
    of the main path, A-D, must have launched; E is on no path and is not
@@ -35,8 +34,8 @@ printing one flushed line with its seconds:
 5. timing: CUDA-event time of the kernel-path forward (preprocess +
    predict, bs=1, 5 warm-up + 50 timed), the plain path's, and each kernel's
    and plain version's time per launch at the main path's inputs (E's at
-   phase 3b's inputs); kernel D's time is printed per call site, C's per
-   variant, and B's, C's and D's beside their times before their redesigns.
+   phase 3b's inputs); kernel D's time is printed per call site, and B's,
+   C's and D's beside their times before their redesigns.
    Each kernel's bound is the larger of its bytes over 3.35 TB/s and its
    operations over the peak of the units it runs them on: TF32 tensor cores
    (495 TFLOP/s, three TF32 products per float32 product, two for a bf16
@@ -251,8 +250,7 @@ def check_against_plain(name, op, args, kw, tol, errs):
         torch.cuda.synchronize()
         ref = outputs(op(*args, **dict(kw, impl='plain')))
         torch.cuda.synchronize()
-    extra = ''.join(f' {k}={v}' for k, v in kw.items()
-                    if k in ('chain', 'stride'))
+    extra = f' stride={kw["stride"]}' if 'stride' in kw else ''
     for g, r in zip(got, ref):
         if g.shape != r.shape or g.dtype != r.dtype:
             raise AssertionError(f'{name} {shape_of(args)}: {g.shape} '
@@ -281,7 +279,6 @@ def main() -> int:
     from lednet_tpu_torch.apis import inference_model, init_model
     from lednet_tpu_torch.ops import kernels
     from lednet_tpu_torch.ops.kernels import _build, basic_pair, stem_convs
-    from lednet_tpu_torch.ops.kernels.conv_block import CHAINS, PAIR_CHAIN
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     repo = os.path.dirname(os.path.abspath(__file__))
@@ -332,11 +329,6 @@ def main() -> int:
         for name, op, args, kw in calls:
             tol = 0.0 if name == 'normalize_image' else TOL_KERNEL
             check_against_plain(name, op, args, kw, tol, errs[name])
-            if name == 'basic_pair':      # the variants off the path too
-                for L in CHAINS:
-                    if L != PAIR_CHAIN:
-                        check_against_plain(name, op, args, dict(kw, chain=L),
-                                            tol, errs[name])
         missing = [n for n, e in errs.items() if not e and n not in OFF_PATH]
         if missing:
             raise AssertionError(f'the main path called no {missing}')
@@ -389,9 +381,8 @@ def main() -> int:
             ws = 0.08 * torch.randn((4, c, c, 3, 3), generator=gen)
             bs = 0.1 * torch.randn((4, c), generator=gen)
             x = torch.randn(shape, generator=gen).relu()
-            for L in CHAINS:
-                ragged.append(('basic_pair', basic_pair,
-                               (x.cuda(), ws.cuda(), bs.cuda()), {'chain': L}))
+            ragged.append(('basic_pair', basic_pair,
+                           (x.cuda(), ws.cuda(), bs.cuda()), {}))
         for name, op, args, kw in ragged:
             check_against_plain(name, op, args, kw, TOL_KERNEL, errs[name])
 
@@ -466,14 +457,10 @@ def main() -> int:
                     if n == name]
             ms = plain_ms = bound = old_bound = 0.0
             bound_by = {'bytes': 0.0, 'operations': 0.0}
-            variants = {L: 0.0 for L in CHAINS} if name == 'basic_pair' else {}
             with torch.inference_mode():
                 for op, args, kw in mine:
                     t = cuda_ms(lambda: op(*args, **dict(kw, impl='cuda')), 20)
                     t_plain = cuda_ms(lambda: op(*args, **dict(kw, impl='plain')), 20)
-                    for L in variants:
-                        variants[L] += cuda_ms(lambda: op(*args, **dict(
-                            kw, impl='cuda', chain=L)), 20)
                     b, by, b_f32 = bounds_ms(name, args, kw)
                     ms, plain_ms, bound = ms + t, plain_ms + t_plain, bound + b
                     old_bound += b_f32
@@ -488,18 +475,13 @@ def main() -> int:
                 name=name, route='cuda', source=source, replaces=replaces,
                 launches=launches[name], max_abs_err=max(errs[name]),
                 ms=ms / k, plain_ms=plain_ms / k, bound_ms=bound / k,
-                bound_by=max(bound_by, key=bound_by.get), library_ms=None,
-                ops_on='TF32 tensor cores, 3xTF32'
-                if name in TENSOR_CORE_KERNELS else 'float32 pipes',
-                f32_pipe_bound_ms=old_bound / k))
+                bound_by=max(bound_by, key=bound_by.get), library_ms=None))
+            units = ('TF32 tensor cores, 3xTF32' if name in TENSOR_CORE_KERNELS
+                     else 'float32 pipes')
             say(f'  {name}: {ms / k:.4f} ms/launch, {launches[name] / N_IMAGES:g} '
                 f'launches/forward, bound {bound / k:.4f} ms '
-                f'({rows[-1]["bound_by"]}, {rows[-1]["ops_on"]}; float32-pipe '
-                f'bound {old_bound / k:.4f} ms), plain {plain_ms / k:.4f} ms')
-            for L, t in variants.items():
-                say(f'    basic_pair with {L} conv(s) per launch '
-                    f'({4 // L} launches){" (on the path)" if L == PAIR_CHAIN else ""}: '
-                    f'{t / k:.4f} ms/call')
+                f'({rows[-1]["bound_by"]}, {units}; float32-pipe bound '
+                f'{old_bound / k:.4f} ms), plain {plain_ms / k:.4f} ms')
             earlier = {'sesp_block': ' / '.join(f'{t:.4f}' for t in EARLIER_SESP_MS),
                        'stem_convs': f'{EARLIER_STEM_MS:.4f}',
                        'basic_pair': f'{EARLIER_PAIR_MS:.4f}'}

@@ -133,7 +133,7 @@ def _prepare_data(imgs, cfg) -> Tuple[List[Dict], bool]:
 
 
 @contextlib.contextmanager
-def float32_math():
+def _float32_math():
     """Float32 convs and matmuls in full float32 inside, the caller's flags
     restored after.  torch's defaults let cuDNN run float32 convs in TF32
     (10-bit mantissas); on the flagship that moves the logits by a few 1e-3 of
@@ -157,9 +157,9 @@ def inference_model(model: torch.nn.Module, img, batch_size: int = 1,
     (H, W, C) float32 and ``metainfo``.  Same-shape inputs run in batches of
     ``batch_size``.  ``impl`` selects the kernels (``'cuda'``) or the plain
     module forms (``'plain'``); ``None`` follows the model's device.  The
-    model runs in full float32 (:func:`float32_math`), whatever the
+    model runs in full float32 (:func:`_float32_math`), whatever the
     caller's TF32 flags."""
-    with float32_math():
+    with _float32_math():
         return _inference(model, img, batch_size, impl)
 
 

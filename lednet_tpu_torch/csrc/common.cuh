@@ -54,6 +54,21 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+// Let `kernel` use `smem` bytes of dynamic shared memory.  Done once per
+// device (bit d of `done`, kept by the caller for one kernel whose launches
+// all ask for the same amount).
+template <typename Kernel>
+inline cudaError_t allow_smem(Kernel kernel, int smem, unsigned& done) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 32 && (done >> dev & 1u)) return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem);
+  if (e == cudaSuccess && dev < 32) done |= 1u << dev;
+  return e;
+}
+
 // Up to four dilation rates, passed to a kernel by value.
 struct Rates {
   int r[4];

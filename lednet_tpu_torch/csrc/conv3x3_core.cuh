@@ -106,7 +106,7 @@ __device__ __forceinline__ void zero_acc(float (&acc)[MT][NT][4]) {
 // with a rounded float add: the MMA's own accumulation truncates, and a
 // chain of 27 MMAs per chunk instead of 27 x C/8 per conv keeps that error
 // near float32 rounding.  With several m-tiles only the three taps of a
-// kernel row are unrolled: fully unrolled, the chain kernels' code outgrows
+// kernel row are unrolled: fully unrolled, kernel C's code outgrows
 // the instruction cache.
 //   src   shared input: the chunk's first channel plane
 //   cs    channel stride of src, in floats

@@ -13,76 +13,65 @@
 // four convs are 4.83 GFLOP; in 3xTF32 that is three TF32 products each,
 // 14.5 GFLOP / 495 TFLOP/s = 0.029 ms, against 0.005 ms of bytes (x, out).
 //
-// Design: one launch runs a chain of L consecutive convs (L = 1, 2 or 4;
-// conv0 names the first) on a 16 x 32 output tile (16 x 16 for L = 1 and
-// 4), through the 3xTF32 tensor-core core of conv3x3_core.cuh.  The tile's
-// input with an L-pixel halo is staged with cp.async (16-byte copies of
-// aligned row spans where the width allows); each conv of the chain
-// computes its output over the tile grown by the halo the rest of the chain
-// still needs, keeps it in shared memory (zero outside the image: the next
-// conv's padding) and the last one writes the tile to global memory.
-// Residuals come from the chain's own buffers (or, for L = 1, from global
-// memory).  The chain's weights stream through a ring of two chunk slots
-// (one chunk = 8 input channels x 9 taps of B fragments), each refilled by
-// cp.async as soon as every warp is done with it, so the next chunk's loads
-// overlap this chunk's MMAs.
-//   L = 1: four launches, no recompute, two CTAs per SM;
-//   L = 2: one launch per BasicBlock, h kept on chip, 10% recompute, one
-//          wave of 128 CTAs at the flagship's 256 x 256;
-//   L = 4: one launch, 43% recompute, 221 KB of shared memory.
-// The op's variant is chosen in ops/kernels/conv_block.py (PAIR_CHAIN).
+// Design: one launch per BasicBlock (two per op), on 16 x 32 output tiles
+// (one wave of 128 CTAs at the flagship's 256 x 256), through the 3xTF32
+// tensor-core core of conv3x3_core.cuh.  The block's input x with a
+// 2-pixel halo is staged with cp.async (16-byte copies of aligned row spans
+// where the width allows); the first conv computes h over the tile grown
+// by one pixel and keeps it in shared memory (zero outside the image: the
+// second conv's padding); the second conv adds the residual x from shared
+// memory and writes the tile.  The block's weights stream through a ring
+// of two chunk slots (one chunk = 8 input channels x 9 taps of B
+// fragments), each refilled by cp.async as soon as every warp is done with
+// it, so the next chunk's loads overlap this chunk's MMAs.
+//
+// Measured alternatives (PERF.md section 6): four launches of one conv each
+// (no recompute, two CTAs per SM) and one launch of all four convs (43%
+// recompute on 16 x 16 tiles) were both slower on the flagship.
 #include "conv3x3_core.cuh"
 
 namespace lednet {
 
-template <int C, int L>
-struct Chain {
+template <int C>
+struct Block {
   static constexpr int NT = C / 8, CH = C / 8;
-  // output tile: 16 x 32 for L = 2 (one wave of 128 CTAs at 256 x 256);
-  // 16 x 16 for L = 1 (two CTAs per SM) and L = 4 (whose halos would not
-  // fit with 32 columns)
-  static constexpr int TH = 16, TW = L == 2 ? 32 : 16;
+  static constexpr int TH = 16, TW = 32;             // output tile
   static constexpr int S = 2;                        // weight ring slots
-  // input region of stage s: the tile with an (L - s)-pixel halo
-  __host__ __device__ static constexpr int in_h(int s) { return TH + 2 * (L - s); }
-  __host__ __device__ static constexpr int in_w(int s) { return TW + 2 * (L - s); }
-  // its rows in shared memory: stage 0's (copied from x) start at the
-  // 16-byte aligned column ow0 - 4 and span whole float4s, the region
-  // starting coff(0) = 4 - L columns in; the chain's own buffers hold just
-  // the region
+  // input region of stage s (0: x, 1: h): the tile with a (2 - s)-pixel halo
+  __host__ __device__ static constexpr int in_h(int s) { return TH + 2 * (2 - s); }
+  __host__ __device__ static constexpr int in_w(int s) { return TW + 2 * (2 - s); }
+  // its rows in shared memory: x's start at the 16-byte aligned column
+  // ow0 - 4 and span whole float4s, the region starting coff(0) = 2
+  // columns in; h's hold just the region
   __host__ __device__ static constexpr int rw(int s) {
-    return s == 0 ? (TW + L + 4 + 3) / 4 * 4 : in_w(s);
+    return s == 0 ? (TW + 6 + 3) / 4 * 4 : in_w(s);
   }
-  __host__ __device__ static constexpr int coff(int s) { return s == 0 ? 4 - L : 0; }
+  __host__ __device__ static constexpr int coff(int s) { return s == 0 ? 2 : 0; }
   __host__ __device__ static constexpr int cs(int s) { return pad_cs(in_h(s) * rw(s)); }
-  // stage 3's input (L = 4) reuses stage 0's buffer: x is dead by then
-  __host__ __device__ static constexpr int phys(int s) { return (L == 4 && s == 3) ? 0 : s; }
-  __host__ __device__ static constexpr int nbuf() { return L < 3 ? L : 3; }
-  __host__ __device__ static constexpr int off(int p) { return p == 0 ? 0 : off(p - 1) + C * cs(p - 1); }
+  __host__ __device__ static constexpr int off(int s) { return s == 0 ? 0 : C * cs(0); }
   static constexpr int smem_bytes() {
-    return S * chunk_frags(C) * 16 + off(nbuf()) * 4;
+    return S * chunk_frags(C) * 16 + C * (cs(0) + cs(1)) * 4;
   }
 };
 
-template <int C, int L>
-struct ChainCtx {
+template <int C>
+struct BlockCtx {
   float4* ring;
   float* bufs;
   const float* xb;
-  const float* resb;
   float* outb;
   const float4* wf;
   const float* bias;
   int H, W, oh0, ow0, conv0, tid, lane, warp;
   size_t plane;
 
-  // cp.async group g: weight chunk g of the chain into slot g % S and, for
-  // the first conv, input chunk g of the tile with its L-pixel halo: as
+  // cp.async group g: weight chunk g of the block into slot g % S and, for
+  // its first conv, input chunk g of the tile with its 2-pixel halo: as
   // float4s when rows are 16-byte aligned (W % 4 == 0), else as floats.
   __device__ __forceinline__ void issue(int g) const {
-    using K = Chain<C, L>;
-    constexpr int G = L * K::CH, RW = K::rw(0), A0 = K::in_h(0) * RW;
-    if (g < G) {
+    using K = Block<C>;
+    constexpr int RW = K::rw(0), A0 = K::in_h(0) * RW;
+    if (g < 2 * K::CH) {
       const int i = conv0 + g / K::CH, q = g % K::CH;
       stage_frags(ring + (g % K::S) * chunk_frags(C),
                   wf + (static_cast<size_t>(i) * K::CH + q) * chunk_frags(C),
@@ -93,7 +82,7 @@ struct ChainCtx {
           for (int e = tid; e < 8 * A0 / 4; e += kConvThreads) {
             const int c = 8 * q + e / (A0 / 4), rv = e % (A0 / 4);
             const int r = rv / (RW / 4), gx = gx0 + 4 * (rv % (RW / 4));
-            const int gy = oh0 - L + r;
+            const int gy = oh0 - 2 + r;
             const bool ok = gy >= 0 && gy < H && gx >= 0 && gx < W;
             cp_async_f32x4(
                 bufs + c * K::cs(0) + 4 * rv,
@@ -103,7 +92,7 @@ struct ChainCtx {
         } else {
           for (int e = tid; e < 8 * A0; e += kConvThreads) {
             const int c = 8 * q + e / A0, rc = e % A0;
-            const int gy = oh0 - L + rc / RW, gx = gx0 + rc % RW;
+            const int gy = oh0 - 2 + rc / RW, gx = gx0 + rc % RW;
             const bool ok = gy >= 0 && gy < H && gx >= 0 && gx < W;
             cp_async_f32(
                 bufs + c * K::cs(0) + rc,
@@ -117,11 +106,11 @@ struct ChainCtx {
   }
 };
 
-// Stage s of the chain: conv (conv0 + s) from buffer phys(s) to buffer
-// phys(s + 1), or to global memory for the last stage.
-template <int C, int L, int s>
-__device__ __forceinline__ void chain_stage(const ChainCtx<C, L>& x) {
-  using K = Chain<C, L>;
+// Stage s of the block: conv (conv0 + s) from buffer s; stage 0 writes h to
+// buffer 1, stage 1 adds the residual x (buffer 0) and writes the output.
+template <int C, int s>
+__device__ __forceinline__ void block_stage(const BlockCtx<C>& x) {
+  using K = Block<C>;
   constexpr int NT = K::NT;
   constexpr int OW = K::in_w(s) - 2, OH = K::in_h(s) - 2;
   constexpr int RW = K::rw(s), CO = K::coff(s);      // input row layout
@@ -141,7 +130,7 @@ __device__ __forceinline__ void chain_stage(const ChainCtx<C, L>& x) {
 
   float acc[MT][NT][4];
   zero_acc(acc);
-  const float* in = x.bufs + K::off(K::phys(s));
+  const float* in = x.bufs + K::off(s);
 #pragma unroll 1
   for (int q = 0; q < K::CH; ++q) {
     const int g = s * K::CH + q;
@@ -153,8 +142,8 @@ __device__ __forceinline__ void chain_stage(const ChainCtx<C, L>& x) {
     x.issue(g + K::S);
   }
 
-  // epilogue: bias, residual (odd convs: the block's input), ReLU
-  const int i = x.conv0 + s, r = L - 1 - s;
+  // epilogue: bias, the residual x (second conv), ReLU
+  const int i = x.conv0 + s, r = 1 - s;
   float bv[NT][2];
 #pragma unroll
   for (int n = 0; n < NT; ++n)
@@ -169,48 +158,37 @@ __device__ __forceinline__ void chain_stage(const ChainCtx<C, L>& x) {
       const int py = p / OW, px = p % OW;
       const int gy = x.oh0 - r + py, gx = x.ow0 - r + px;
       const bool inside = gy >= 0 && gy < x.H && gx >= 0 && gx < x.W;
-      const size_t gofs = static_cast<size_t>(gy) * x.W + gx;
 #pragma unroll
       for (int n = 0; n < NT; ++n)
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
           const int co = n * 8 + 2 * t + j;
           float v = acc[m][n][2 * h + j] + bv[n][j];
-          if (i & 1) {
-            if constexpr (s >= 1) {
-              v += x.bufs[K::off(K::phys(s - 1)) + co * K::cs(s - 1) +
-                          (py + 2) * K::rw(s - 1) + px + 2 + K::coff(s - 1)];
-            } else if (inside) {
-              v += x.resb[co * x.plane + gofs];
-            }
-          }
-          v = fmaxf(v, 0.f);
-          if constexpr (s < L - 1) {
-            x.bufs[K::off(K::phys(s + 1)) + co * K::cs(s + 1) + p] =
-                inside ? v : 0.f;
+          if constexpr (s == 0) {
+            x.bufs[K::off(1) + co * K::cs(1) + p] = inside ? fmaxf(v, 0.f) : 0.f;
           } else if (inside) {
-            x.outb[co * x.plane + gofs] = v;
+            v += x.bufs[co * K::cs(0) + (py + 2) * K::rw(0) + px + 2 + K::coff(0)];
+            x.outb[co * x.plane + static_cast<size_t>(gy) * x.W + gx] =
+                fmaxf(v, 0.f);
           }
         }
     }
   }
 }
 
-template <int C, int L>
-__global__ void __launch_bounds__(kConvThreads, L == 1 ? 2 : 1)
-basic_chain_kernel(const float* __restrict__ x, const float4* __restrict__ wf,
-                   const float* __restrict__ bias,
-                   const float* __restrict__ res, float* __restrict__ out,
+template <int C>
+__global__ void __launch_bounds__(kConvThreads, 1)
+basic_block_kernel(const float* __restrict__ x, const float4* __restrict__ wf,
+                   const float* __restrict__ bias, float* __restrict__ out,
                    int H, int W, int conv0) {
-  using K = Chain<C, L>;
+  using K = Block<C>;
   extern __shared__ float4 smem4[];
-  ChainCtx<C, L> ctx;
+  BlockCtx<C> ctx;
   ctx.ring = smem4;
   ctx.bufs = reinterpret_cast<float*>(smem4 + K::S * chunk_frags(C));
   ctx.plane = static_cast<size_t>(H) * W;
   const size_t boff = static_cast<size_t>(blockIdx.z) * C * ctx.plane;
   ctx.xb = x + boff;
-  ctx.resb = res == nullptr ? nullptr : res + boff;
   ctx.outb = out + boff;
   ctx.wf = wf;
   ctx.bias = bias;
@@ -224,61 +202,44 @@ basic_chain_kernel(const float* __restrict__ x, const float4* __restrict__ wf,
   ctx.warp = threadIdx.x >> 5;
 #pragma unroll
   for (int g = 0; g < K::S; ++g) ctx.issue(g);
-  chain_stage<C, L, 0>(ctx);
-  if constexpr (L > 1) chain_stage<C, L, 1>(ctx);
-  if constexpr (L > 2) chain_stage<C, L, 2>(ctx);
-  if constexpr (L > 3) chain_stage<C, L, 3>(ctx);
+  block_stage<C, 0>(ctx);
+  block_stage<C, 1>(ctx);
 }
 
-template <int C, int L>
-int launch_chain(const float* x, const void* wf, const float* bias,
-                 const float* res, float* out, int B, int H, int W, int conv0,
-                 int th, int tw, int smem, cudaStream_t stream) {
-  using K = Chain<C, L>;
+template <int C>
+int launch_block(const float* x, const void* wf, const float* bias,
+                 float* out, int B, int H, int W, int conv0, int th, int tw,
+                 int smem, cudaStream_t stream) {
+  using K = Block<C>;
   if (th != K::TH || tw != K::TW || smem != K::smem_bytes() ||
-      conv0 < 0 || conv0 + L > 4 || (conv0 % L) != 0)
+      (conv0 != 0 && conv0 != 2))
     return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = basic_chain_kernel<C, L>;
-  // once per instantiation and device (smem is fixed for an instantiation)
+  auto kernel = basic_block_kernel<C>;
   static unsigned smem_set = 0;
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
+  cudaError_t e = allow_smem(kernel, smem, smem_set);
   if (e != cudaSuccess) return static_cast<int>(e);
-  if (dev >= 32 || !(smem_set >> dev & 1u)) {
-    e = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    if (dev < 32) smem_set |= 1u << dev;
-  }
   dim3 grid(ceil_div(W, K::TW), ceil_div(H, K::TH), B);
   kernel<<<grid, kConvThreads, smem, stream>>>(
-      x, static_cast<const float4*>(wf), bias, res, out, H, W, conv0);
+      x, static_cast<const float4*>(wf), bias, out, H, W, conv0);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace lednet
 
-// One launch of L chained convs (conv0 .. conv0 + L - 1) of the pair.
-// wf: B fragments of all four convs (conv3x3.py::conv_fragments, stacked);
-// bias (4, C); res: the residual of conv0 when L = 1 and conv0 is odd.
-// th, tw and smem are the Python geometry (conv3x3.py::chain_config); a
-// mismatch with the compiled one is refused.
-LEDNET_API int lednet_basic_chain(const float* x, const void* wf,
-                                  const float* bias, const float* res,
-                                  float* out, int B, int C, int H, int W,
-                                  int conv0, int L, int th, int tw, int smem,
-                                  cudaStream_t stream) {
+// One BasicBlock of the pair: convs conv0 and conv0 + 1 (conv0 = 0 or 2).
+// wf: B fragments of all four convs (conv3x3.py::pair_fragments); bias
+// (4, C).  th, tw and smem are the Python geometry
+// (conv3x3.py::block_config); a mismatch with the compiled one is refused.
+LEDNET_API int lednet_basic_block(const float* x, const void* wf,
+                                  const float* bias, float* out, int B, int C,
+                                  int H, int W, int conv0, int th, int tw,
+                                  int smem, cudaStream_t stream) {
   using namespace lednet;
-#define LEDNET_CHAIN(CC, LL)                                                 \
-  if (C == CC && L == LL)                                                    \
-    return launch_chain<CC, LL>(x, wf, bias, res, out, B, H, W, conv0, th,   \
-                                tw, smem, stream);
-  LEDNET_CHAIN(32, 1)
-  LEDNET_CHAIN(32, 2)
-  LEDNET_CHAIN(32, 4)
-  LEDNET_CHAIN(16, 1)
-  LEDNET_CHAIN(16, 2)
-  LEDNET_CHAIN(16, 4)
-#undef LEDNET_CHAIN
+  if (C == 32)
+    return launch_block<32>(x, wf, bias, out, B, H, W, conv0, th, tw, smem,
+                            stream);
+  if (C == 16)
+    return launch_block<16>(x, wf, bias, out, B, H, W, conv0, th, tw, smem,
+                            stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }

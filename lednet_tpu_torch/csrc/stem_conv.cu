@@ -324,17 +324,9 @@ int launch_stem(const void* x, const void* w1f, const float* b1,
   if (th != K::TH || tw != K::TW || smem != K::smem_bytes() || ctas < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   auto kernel = stem_fused_kernel<Tin, C>;
-  // once per instantiation and device (smem is fixed for an instantiation)
   static unsigned smem_set = 0;
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
+  cudaError_t e = allow_smem(kernel, smem, smem_set);
   if (e != cudaSuccess) return static_cast<int>(e);
-  if (dev >= 32 || !(smem_set >> dev & 1u)) {
-    e = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    if (dev < 32) smem_set |= 1u << dev;
-  }
   const int H1 = (H + 1) / 2, W1 = (W + 1) / 2;
   const int H2 = (H1 + 1) / 2, W2 = (W1 + 1) / 2;
   const int tiles_x = ceil_div(W2, K::TW), tiles_y = ceil_div(H2, K::TH);

@@ -5,8 +5,8 @@ Every op takes ``impl``: ``None`` runs the kernel on a CUDA tensor and the
 plain version on a CPU tensor; ``'cuda'`` on a CPU tensor raises; a build or
 launch failure raises.  Nothing falls back.  A launch counted in
 ``<op>.launches`` is one call of the op (kernel D is two CUDA launches per
-call, kernel B one, kernel C two on the path (one to four by its ``chain``),
-kernel E one).  Kernel E (``sesp_pyramid``) is on no model path: no model of either package calls it.
+call, kernel B one, kernel C two, kernel E one).  Kernel E (``sesp_pyramid``)
+is on no model path: no model of either package calls it.
 """
 from lednet_tpu_torch.ops.kernels.conv_block import basic_pair
 from lednet_tpu_torch.ops.kernels.normalize import normalize_image

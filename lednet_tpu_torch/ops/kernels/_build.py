@@ -42,7 +42,7 @@ SIGNATURES = {
     'lednet_normalize_image': [_P, _P, _I, _I, _I, _F, _F, _F, _F, _F, _F,
                                _I, _I, _P],
     'lednet_stem_fused': [_P] * 7 + [_I] * 10 + [_P],
-    'lednet_basic_chain': [_P] * 5 + [_I] * 9 + [_P],
+    'lednet_basic_block': [_P] * 4 + [_I] * 8 + [_P],
     'lednet_sesp_reduce': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     'lednet_sesp_fused': [_P] * 11 + [_I] * 17 + [_P],
     'lednet_sesp_pyramid': [_P] * 4 + [_I] * 13 + [_P],

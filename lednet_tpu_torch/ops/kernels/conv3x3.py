@@ -23,7 +23,7 @@ THREADS = 256                   # every launch of B and C
 SMEM_BYTES = 232448             # H100: shared memory one CTA may use
 SMS = 132                       # H100 streaming multiprocessors
 CHANNELS = (16, 32)             # widths the kernels are compiled for
-PAIR_TILES = {1: (16, 16), 2: (16, 32), 4: (16, 16)}   # kernel C, by L
+PAIR_TILE = (16, 32)            # kernel C's output tile
 STEM_TILE = (8, 16)             # kernel B's x2 tile
 
 
@@ -142,20 +142,16 @@ def check_channels(C: int) -> None:
                          f'got C={C}')
 
 
-def chain_config(B: int, C: int, H: int, W: int, L: int) -> LaunchConfig:
-    """One launch of kernel C running L (1, 2 or 4) chained convs
-    (``Chain<C, L>`` in ``csrc/conv_block.cu``): a ring of two weight
-    chunks and the input of every conv of the chain, each with the halo the
-    rest of the chain needs (stage 3's input reuses stage 0's buffer)."""
+def block_config(B: int, C: int, H: int, W: int) -> LaunchConfig:
+    """One launch of kernel C, one BasicBlock (``Block<C>`` in
+    ``csrc/conv_block.cu``): a ring of two weight chunks, the block's input
+    with a 2-pixel halo (rows spanning whole float4s from column ow0 - 4)
+    and h with a 1-pixel halo."""
     check_channels(C)
-    if L not in PAIR_TILES:
-        raise ValueError(f'L must be 1, 2 or 4, got {L}')
-    th, tw = PAIR_TILES[L]
-    slots = 2
-    # stage 0's rows span whole float4s from column ow0 - 4
-    rw = lambda s: -(-(tw + L + 4) // 4) * 4 if s == 0 else tw + 2 * (L - s)
-    bufs = sum(C * pad_cs((th + 2 * (L - s)) * rw(s)) for s in range(min(L, 3)))
-    smem = slots * chunk_frags(C) * 16 + bufs * 4
+    th, tw = PAIR_TILE
+    x_rw = -(-(tw + 6) // 4) * 4
+    bufs = C * (pad_cs((th + 4) * x_rw) + pad_cs((th + 2) * (tw + 2)))
+    smem = 2 * chunk_frags(C) * 16 + bufs * 4
     grid = (_cdiv(W, tw), _cdiv(H, th), B)
     return LaunchConfig(th, tw, THREADS, smem, grid, grid[0] * grid[1] * B)
 

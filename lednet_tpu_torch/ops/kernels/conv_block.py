@@ -7,11 +7,8 @@ folded):
 
 Replaces ``lednet_tpu/ops/pallas/conv_block.py:73`` (``basic_pair_packed``,
 reached through ``basic_pair`` :126); its width packing exists for 128-lane
-TPU tiles.  CUDA source: ``lednet_tpu_torch/csrc/conv_block.cu``, the
-3xTF32 tensor-core conv core run as chains of L convs per launch: L = 1
-(four launches), 2 (one per BasicBlock, h on chip) or 4 (one launch).
-``PAIR_CHAIN`` is the one the op runs; the others stay selectable with
-``chain=`` so that ``chip_smoke.py`` can check and time them.
+TPU tiles.  CUDA source: ``lednet_tpu_torch/csrc/conv_block.cu``, one
+launch per BasicBlock (h kept on chip) on the 3xTF32 tensor-core conv core.
 """
 from __future__ import annotations
 
@@ -20,14 +17,11 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from lednet_tpu_torch.ops.kernels._build import (check, library, ptr, require,
+from lednet_tpu_torch.ops.kernels._build import (check, library, require,
                                                  resolve_impl, stream_ptr)
-from lednet_tpu_torch.ops.kernels.conv3x3 import (chain_config,
+from lednet_tpu_torch.ops.kernels.conv3x3 import (block_config,
                                                   check_channels,
                                                   pair_fragments)
-
-CHAINS = (1, 2, 4)          # convs per launch that the kernel takes
-PAIR_CHAIN = 2              # the variant on the path: one launch per block
 
 
 def basic_pair_plain(x: torch.Tensor, w: torch.Tensor,
@@ -42,14 +36,12 @@ def basic_pair_plain(x: torch.Tensor, w: torch.Tensor,
 
 def basic_pair(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                impl: Optional[str] = None,
-               frags: Optional[torch.Tensor] = None,
-               chain: Optional[int] = None) -> torch.Tensor:
+               frags: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The BasicBlock pair + trailing ReLU on a (B, C, H, W) float32 map.
 
     ``frags``: the kernel's pre-split weights, ``pair_fragments(w)``
     (computed here when None; the model caches them with its folded
-    weights).  ``chain``: convs per launch (``CHAINS``; default
-    ``PAIR_CHAIN``).  The plain version reads neither."""
+    weights).  The plain version does not read them."""
     if resolve_impl(impl, x) == 'plain':
         return basic_pair_plain(x, w, b)
     require(x, 'x', torch.float32)
@@ -62,27 +54,15 @@ def basic_pair(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     frags = pair_fragments(w) if frags is None else frags
     require(frags, 'frags', torch.float32, (4, C // 8, 9, C // 8, 32, 4),
             x.device)
-    L = PAIR_CHAIN if chain is None else chain
-    cfg = chain_config(B, C, H, W, L)
+    cfg = block_config(B, C, H, W)
     lib = library()
-    stream = stream_ptr(x)
-
-    def launch(v, conv0, res):
-        out = torch.empty_like(x)
-        check(lib.lednet_basic_chain(
-            v.data_ptr(), frags.data_ptr(), b.data_ptr(), ptr(res),
-            out.data_ptr(), B, C, H, W, conv0, L, cfg.th, cfg.tw, cfg.smem,
-            stream), 'basic_pair')
-        return out
-
-    if L == 1:
-        h = launch(x, 0, None)
-        b1 = launch(h, 1, x)
-        out = launch(launch(b1, 2, None), 3, b1)
-    else:
-        out = x
-        for conv0 in range(0, 4, L):
-            out = launch(out, conv0, None)
+    out = x
+    for conv0 in (0, 2):
+        v, out = out, torch.empty_like(x)
+        check(lib.lednet_basic_block(
+            v.data_ptr(), frags.data_ptr(), b.data_ptr(), out.data_ptr(), B,
+            C, H, W, conv0, cfg.th, cfg.tw, cfg.smem, stream_ptr(x)),
+            'basic_pair')
     basic_pair.launches += 1
     return out
 

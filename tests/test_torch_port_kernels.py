@@ -29,7 +29,6 @@ from lednet_tpu.ops.s2d import (depth_to_space, pack_s1_conv_weights,
 from lednet_tpu_torch.ops.kernels import (basic_pair, normalize_image,
                                           sesp_block, sesp_pyramid, stem_convs)
 from lednet_tpu_torch.ops.kernels import conv3x3
-from lednet_tpu_torch.ops.kernels.conv_block import CHAINS
 from lednet_tpu_torch.ops.kernels.sesp_pyramid import (SMEM_BYTES, THREADS,
                                                        bn_fold, dense_grouped,
                                                        fused_config,
@@ -231,19 +230,15 @@ def test_stem_launch_config_fits_the_card(B, H, W, C):
 
 
 @pytest.mark.parametrize('B,H,W,C', PAIR_SHAPES)
-def test_pair_launch_configs_fit_the_card(B, H, W, C):
-    """Kernel C, every variant: 256 threads, a grid of tiles that covers the
-    map, and the weight ring plus every conv's input with its halo within
-    227 KB (two CTAs per SM for one conv per launch)."""
-    for L in CHAINS:
-        cfg = conv3x3.chain_config(B, C, H, W, L)
-        assert cfg.threads == 256 and cfg.smem <= conv3x3.SMEM_BYTES
-        assert cfg.grid == (-(-W // cfg.tw), -(-H // cfg.th), B)
-        assert cfg.grid[0] * cfg.tw >= W and cfg.grid[1] * cfg.th >= H
-        if L == 1:
-            assert 2 * (cfg.smem + 1024) <= 233472
+def test_pair_launch_config_fits_the_card(B, H, W, C):
+    """Kernel C: 256 threads, a grid of tiles that covers the map, and the
+    weight ring, x with its 2-pixel halo and h within 227 KB."""
+    cfg = conv3x3.block_config(B, C, H, W)
+    assert cfg.threads == 256 and cfg.smem <= conv3x3.SMEM_BYTES
+    assert cfg.grid == (-(-W // cfg.tw), -(-H // cfg.th), B)
+    assert cfg.grid[0] * cfg.tw >= W and cfg.grid[1] * cfg.th >= H
     with pytest.raises(ValueError, match='compiled for C'):
-        conv3x3.chain_config(1, 24, 16, 16, 2)
+        conv3x3.block_config(1, 24, 16, 16)
 
 
 # ------------------------------------------------------- D: SESP block

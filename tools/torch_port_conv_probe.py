@@ -12,8 +12,8 @@ on one GPU: the card's ``mma.sync`` TF32 rate and phase knockouts.
    ``lednet_tpu_torch/_build/probe/`` (git-ignored).  Each row turns one or
    more phases off (the outputs are then wrong; they are not checked) and
    reports the device time per call from ``torch.profiler`` at the
-   flagship's shapes: B on a (1, 3, 1024, 1024) bf16 image, C on a
-   (1, 32, 256, 256) map for each chain length.  The time a phase costs is
+   flagship's shapes: B on a (1, 3, 1024, 1024) bf16 image, C (two
+   launches) on a (1, 32, 256, 256) map.  The time a phase costs is
    the full time less the time without it; phases that overlap do not add
    up.
 
@@ -36,7 +36,7 @@ NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
 
 # knockout bits
 NO_MMA, NO_OUT_STORE, NO_INPUT_STAGING, NO_WEIGHT_STAGING = 1, 2, 4, 8
-PROLOGUE_ONLY, STAGE0_ONLY = 16, 32
+RING_FILL_ONLY, FIRST_CONV_ONLY = 16, 32
 NO_CONV1_MMA, NO_X1_STORE, NO_CONV2 = 64, 128, 256
 
 # (file, text, guarded text): each must match the sources exactly once
@@ -49,8 +49,8 @@ PATCHES = [
      '          const int o0 = poff[m][0] + o, o1 = poff[m][1] + o;',
      '          if (g_knock & 1) continue;\n'
      '          const int o0 = poff[m][0] + o, o1 = poff[m][1] + o;'),
-    ('conv_block.cu', '          } else if (inside) {\n            x.outb[',
-     '          } else if (inside && !(g_knock & 2)) {\n            x.outb['),
+    ('conv_block.cu', '            x.outb[co * x.plane',
+     '            if (!(g_knock & 2)) x.outb[co * x.plane'),
     ('conv_block.cu', '      if (g < K::CH) {',
      '      if (g < K::CH && !(g_knock & 4)) {'),
     ('conv_block.cu', '      stage_frags(ring',
@@ -58,8 +58,8 @@ PATCHES = [
     ('conv_block.cu', '  for (int g = 0; g < K::S; ++g) ctx.issue(g);',
      '  for (int g = 0; g < K::S; ++g) ctx.issue(g);\n'
      '  if (g_knock & 16) { cp_async_wait<0>(); return; }'),
-    ('conv_block.cu', '  chain_stage<C, L, 0>(ctx);',
-     '  chain_stage<C, L, 0>(ctx);\n  if (g_knock & 32) return;'),
+    ('conv_block.cu', '  block_stage<C, 0>(ctx);',
+     '  block_stage<C, 0>(ctx);\n  if (g_knock & 32) return;'),
     ('stem_conv.cu',
      '      for (int ks = 0; ks < K::KS1; ++ks) {\n        uint32_t bh[NT][2]',
      '      for (int ks = 0; ks < ((g_knock & 64) ? 0 : K::KS1); ++ks) {\n'
@@ -142,11 +142,10 @@ def main() -> int:
         print('torch_port_conv_probe: CUDA is not available', file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
-    from lednet_tpu_torch.ops.kernels.conv3x3 import (chain_config,
+    from lednet_tpu_torch.ops.kernels.conv3x3 import (block_config,
                                                       pair_fragments,
                                                       stem_config,
                                                       stem_fragments)
-    from lednet_tpu_torch.ops.kernels.conv_block import CHAINS
     card = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                            '--format=csv,noheader'], capture_output=True,
                           text=True, timeout=60).stdout.strip()
@@ -154,7 +153,7 @@ def main() -> int:
     libs = build()
     P, I = ctypes.c_void_p, ctypes.c_int
     libs['mma_rate'].probe_mma.argtypes = [P, I, I, I]
-    libs['conv_block'].lednet_basic_chain.argtypes = [P] * 5 + [I] * 9 + [P]
+    libs['conv_block'].lednet_basic_block.argtypes = [P] * 4 + [I] * 8 + [P]
     libs['stem_conv'].lednet_stem_fused.argtypes = [P] * 7 + [I] * 10 + [P]
     report = dict(card=card, mma_tf32=[], stem=[], pair=[])
 
@@ -201,32 +200,24 @@ def main() -> int:
     bs = torch.zeros(4, C, device='cuda')
     fp = pair_fragments(ws)
     xp = torch.randn(1, C, 256, 256, generator=gen).relu().cuda()
-    outs = [torch.empty_like(xp), torch.empty_like(xp)]
-    for L in CHAINS:
-        cfg = chain_config(1, C, 256, 256, L)
+    h, out = torch.empty_like(xp), torch.empty_like(xp)
+    cfg = block_config(1, C, 256, 256)
 
-        def pair():
-            v = xp
-            for k, conv0 in enumerate(range(0, 4, L)):
-                o = outs[k % 2]
-                libs['conv_block'].lednet_basic_chain(
-                    v.data_ptr(), fp.data_ptr(), bs.data_ptr(),
-                    xp.data_ptr() if L == 1 and conv0 % 2 else None,
-                    o.data_ptr(), 1, C, 256, 256, conv0, L, cfg.th, cfg.tw,
-                    cfg.smem, stream())
-                v = o
-        rows = [('full', 0), ('no MMAs', NO_MMA),
-                ('no input staging', NO_INPUT_STAGING),
-                ('no weight staging', NO_WEIGHT_STAGING),
-                ('no output stores', NO_OUT_STORE),
-                ('first ring fill only', PROLOGUE_ONLY)]
-        if L > 1:
-            rows.append(('first conv of the chain only', STAGE0_ONLY))
-        for what, knock in rows:
-            libs['conv_block'].probe_knock(knock)
-            t = device_ms(pair)
-            print(f'basic_pair L={L} [{what}]: {t:.4f} ms', flush=True)
-            report['pair'].append(dict(chain=L, knockout=what, ms=t))
+    def pair():
+        for conv0, v, o in ((0, xp, h), (2, h, out)):
+            libs['conv_block'].lednet_basic_block(
+                v.data_ptr(), fp.data_ptr(), bs.data_ptr(), o.data_ptr(), 1, C,
+                256, 256, conv0, cfg.th, cfg.tw, cfg.smem, stream())
+    for what, knock in (('full', 0), ('no MMAs', NO_MMA),
+                        ('no input staging', NO_INPUT_STAGING),
+                        ('no weight staging', NO_WEIGHT_STAGING),
+                        ('no output stores', NO_OUT_STORE),
+                        ('first ring fill only', RING_FILL_ONLY),
+                        ('first conv of each block only', FIRST_CONV_ONLY)):
+        libs['conv_block'].probe_knock(knock)
+        t = device_ms(pair)
+        print(f'basic_pair [{what}]: {t:.4f} ms', flush=True)
+        report['pair'].append(dict(knockout=what, ms=t))
     print(json.dumps(report), flush=True)
     return 0
 

@@ -37,7 +37,7 @@ CONFIG = 'configs/LED_Net/lednet_80k_cityscapes-1024x1024.py'
 PORT_KERNELS = {
     'normalize_image': ('normalize_kernel',),
     'stem_convs': ('stem_fused_kernel',),
-    'basic_pair': ('basic_chain_kernel',),
+    'basic_pair': ('basic_block_kernel',),
     'sesp_block': ('sesp_reduce_kernel', 'sesp_fused_kernel'),
     'sesp_pyramid': ('sesp_pyramid_kernel',),
 }
