@@ -12,10 +12,11 @@ printing one flushed line with its seconds:
 
 1. card: name and power limit (``nvidia-smi``), torch and CUDA versions;
 2. build: the CUDA kernels from ``lednet_tpu_torch/csrc`` (one ``nvcc``);
-3. kernels: one forward records every kernel call of the main path; each
-   call is re-run through the kernel and through its plain PyTorch version on
-   the same inputs and held to max|kernel - plain| <= TOL * max|plain|
-   (normalization: bit-exact);
+3. kernels: one forward records every kernel call of the main path, and
+   a device trace (``torch.profiler``) of it counts each kernel's CUDA
+   launches per forward; each call is re-run through the kernel and through
+   its plain PyTorch version on the same inputs and held to
+   max|kernel - plain| <= TOL * max|plain| (normalization: bit-exact);
 3b. pyramid: kernel E (``sesp_pyramid``), which no model calls, at each
    distinct pyramid shape of the SESP calls recorded in phase 3 (n, H, W,
    rates, stride; their dw1/dw2 and a seeded random reduced map), with the
@@ -25,9 +26,13 @@ printing one flushed line with its seconds:
    the tiles (odd and even), maps smaller than one tile, bf16 and float32
    stem inputs, the 16-channel width; held like phase 3;
 4. model: launch counts set to 0, ``inference_model`` on 4 seeded
-   1024x1024 BGR uint8 images through the kernels, counts read (every kernel
-   of the main path, A-D, must have launched; E is on no path and is not
-   required), then the same images with ``impl='plain'`` (module forms), the
+   1024x1024 BGR uint8 images through the kernels under a device trace,
+   counts read.  ``inference_model`` runs one eager warm-up forward, captures
+   a CUDA graph and replays it 4 times: every kernel of the main path, A-D,
+   must count launches in its wrapper (warm-up and capture; E is on no path
+   and is not required), and the trace must show each kernel's launches of
+   one forward (phase 3) 5 times over, which the replays run.  Then the
+   same images with ``impl='plain'`` (module forms), the
    same images again under torch's default flags (cuDNN convs in TF32)
    against those float32 module forms, and a 256x256 image against the
    model copied to the CPU;
@@ -39,11 +44,40 @@ printing one flushed line with its seconds:
    Each kernel's bound is the larger of its bytes over 3.35 TB/s and its
    operations over the peak of the units it runs them on: TF32 tensor cores
    (495 TFLOP/s, three TF32 products per float32 product, two for a bf16
-   operand) for B and C, the float32 pipes (67 TFLOP/s) for the others.
+   operand) for B and C, the float32 pipes (67 TFLOP/s) for the others;
+6. train: ``make_train_step`` (module forms, BatchNorm on batch statistics,
+   the config's two OHEM losses, SGD + poly lr) on a fresh seeded flagship
+   model, at the config's batch of 6 seeded 1024x1024 BGR uint8 crops with
+   about 2% of labels at 255: one warm-up step and 5 timed steps (CUDA
+   events; loss, acc_seg and grad_norm of each must be finite), peak memory,
+   3 more steps under torch's default flags (cuDNN TF32); then, for 4
+   seeds, one step on the card against the same step of the port on the
+   CPU (flagship widths, 2 images at 256x256, same seeded weights and
+   batch, float32, TF32 off), with the config's OHEM losses and with
+   ``CrossEntropyLoss`` in their place, held to the loss within 1e-5,
+   every weight within atol 1e-4 / rtol 5e-3 and the BatchNorm running
+   stats within atol 1e-5 (var also rtol 1e-4) with the card's convs in
+   PyTorch's own CUDA kernels (cuDNN off), and to the loss and stat bounds
+   with cuDNN (its weights printed beside them): cuDNN's float32 weight
+   gradients sum in an order about 600 times less exact than PyTorch's
+   own, and move the weights past the bound at some seeds
+   (``tools/torch_port_train_gap.py``, ``PERF.md`` section 6);
+7. eval graph: ``make_eval_step`` on the phase-3 model, bs=1, 1024x1024:
+   the replayed CUDA graph against the eager kernel path (max abs error <=
+   TOL_KERNEL x max|logit|, argmax agreement 1.0); then one train step
+   changes the weights, and the step must capture again and match the eager
+   forward with the new weights under the same bound; ``inference_model``
+   against the eager path likewise; then the forward latency of the replay
+   against the eager kernel path (CUDA events, 5 warm-up + 50 timed), the
+   same one frame at a time (host clock, synchronized after each call), the
+   host time of the step's check of the weights, and the number of graphs
+   captured.
 
-It prints the card line and a ``{"kernels": [...]}`` line, and last
-``{"ok": true, "device": {...}}``.  Without CUDA, or without the package
-beside it, it exits non-zero and prints no result.
+It prints the card line and a ``{"kernels": [...]}`` line (``launches``:
+the wrappers' count in phase 4; ``device_launches``: the CUDA launches the
+device trace saw there), and last ``{"ok": true, "device": {...}}``.
+Without CUDA, or without the package beside it, it exits non-zero and
+prints no result.
 """
 import contextlib
 import copy
@@ -61,6 +95,17 @@ N_IMAGES = 4
 SEED = 0
 TOL_KERNEL = 1e-5         # float32 kernels against their plain versions
 TOL_MODEL = 1e-3          # whole logits, kernel path against module forms
+TRAIN_STEPS = 5           # timed train steps, after one warm-up step
+TRAIN_BATCH = 6           # the flagship config's train batch
+# one train step on the card against the CPU, the bounds that
+# tests/test_train_parity.py holds lednet_tpu to torch
+TOL_TRAIN_LOSS = 1e-5
+TOL_TRAIN_WEIGHT = dict(atol=1e-4, rtol=5e-3)
+TOL_TRAIN_MEAN = dict(atol=1e-5, rtol=0.0)
+TOL_TRAIN_VAR = dict(atol=1e-5, rtol=1e-4)
+TRAIN_CHECK_SEEDS = (2, 3, 4, 5)   # the card's step against the CPU's
+CE_LOSSES = [dict(type='CrossEntropyLoss', loss_weight=1.0),
+             dict(type='CrossEntropyLoss', loss_weight=0.4)]
 MIN_ARGMAX_AGREEMENT = 0.999
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM, NVIDIA data sheet
 F32_FLOPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
@@ -139,6 +184,33 @@ def cuda_ms(fn, reps, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+@contextlib.contextmanager
+def device_trace(counts):
+    """Fill ``counts`` with the CUDA launches of each port kernel that ran
+    on the device inside (``kernels.device_launches`` of a CUPTI trace)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from lednet_tpu_torch.ops import kernels
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        yield
+        torch.cuda.synchronize()
+    counts.update(kernels.device_launches(prof.key_averages()))
+
+
+def synced_ms(fn, reps, warmup=3):
+    """Host-clock ms per call of ``fn`` with the device synchronized after
+    each call: the latency of one frame at a time."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
 
 
 # ---------------------------------------------------------------- capture
@@ -264,6 +336,84 @@ def check_against_plain(name, op, args, kw, tol, errs):
         errs.append(e_abs)
 
 
+def train_batch(rng, n, size):
+    """n seeded BGR uint8 crops (n, size, size, 3) and int64 labels of the
+    19 classes with about 2% at 255 (ignored)."""
+    import torch
+    imgs = rng.integers(0, 256, (n, size, size, 3), dtype=np.uint8)
+    lbl = np.where(rng.random((n, size, size)) < 0.02, 255,
+                   rng.integers(0, 19, (n, size, size)))
+    return torch.from_numpy(imgs), torch.from_numpy(lbl.astype(np.int64))
+
+
+def train_once(cfg, device, imgs, lbl, seed, dtype=None):
+    """One train step of a seeded model of ``cfg`` on ``device`` (its
+    weights cast to ``dtype`` if given): (loss, state_dict on the CPU)."""
+    import torch
+    from lednet_tpu_torch.apis import init_model
+    from lednet_tpu_torch.engine import (build_optimizer, create_train_state,
+                                         make_train_step)
+    model = init_model(cfg, device=device,
+                       generator=torch.Generator().manual_seed(seed))
+    if dtype is not None:
+        model.to(dtype)
+    opt, sched = build_optimizer(model, cfg.optim_wrapper, cfg.param_scheduler)
+    step = make_train_step(model, opt, model.data_preprocessor)
+    _, logs = step(create_train_state(model, opt, sched), imgs.to(device),
+                   lbl.to(device))
+    return logs['loss'].item(), {k: v.detach().cpu()
+                                 for k, v in model.state_dict().items()}
+
+
+def train_distance(run, ref):
+    """(|loss - loss_ref|, max |diff| of the weights, of the BatchNorm
+    stats, every tensor's largest share of its TOL_TRAIN_* bound as (share,
+    name), largest first: a share above 1 is outside it)."""
+    (loss, sd), (loss_ref, sd_ref) = run, ref
+    worst = {'weight': 0.0, 'bn_stat': 0.0}
+    shares = []
+    for k, want in sd_ref.items():
+        if k.endswith('num_batches_tracked'):
+            continue
+        tol = (TOL_TRAIN_MEAN if k.endswith('running_mean') else
+               TOL_TRAIN_VAR if k.endswith('running_var') else TOL_TRAIN_WEIGHT)
+        want = want.double()
+        d = (sd[k].double() - want).abs()
+        kind = 'bn_stat' if 'running' in k else 'weight'
+        worst[kind] = max(worst[kind], d.max().item())
+        shares.append(((d / (tol['atol'] + tol['rtol'] * want.abs())).max().item(), k))
+    return (abs(loss - loss_ref), worst['weight'], worst['bn_stat'],
+            sorted(shares, reverse=True))
+
+
+def hold_train(name, card, cpu, bounds):
+    """Hold a train step on the card to the CPU's: the loss within
+    TOL_TRAIN_LOSS, and the weights and BatchNorm stats within their
+    TOL_TRAIN_* where ``bounds`` names them ('weights', 'bn_stats')."""
+    dl, dw, ds, shares = train_distance(card, cpu)
+    worst = {'weights': max((r for r, k in shares if 'running' not in k),
+                            default=0.0),
+             'bn_stats': max((r for r, k in shares if 'running' in k),
+                             default=0.0)}
+    say(f'  {name}: |loss diff| {dl:.3e} (tol {TOL_TRAIN_LOSS:g}), max |diff| '
+        f'weights {dw:.3e}, BatchNorm stats {ds:.3e}; nearest their bound: ' +
+        ', '.join(f'{k} {r:.3f}' for r, k in shares[:3]) + '; held: loss, ' +
+        ', '.join(bounds))
+    if not (dl <= TOL_TRAIN_LOSS and all(worst[b] <= 1.0 for b in bounds)):
+        raise AssertionError(f'{name}: card and CPU disagree')
+
+
+def check_logits(name, out, ref):
+    """max |out - ref| <= TOL_KERNEL x max |ref| and argmax agreement 1."""
+    err = (out.double() - ref.double()).abs().max().item()
+    scale = ref.double().abs().max().item()
+    agree = (out.argmax(-1) == ref.argmax(-1)).double().mean().item()
+    say(f'  {name}: max_abs {err:.3e} (tol {TOL_KERNEL:g} x max|logit| '
+        f'{scale:.3f}), argmax agreement {agree:.6f}')
+    if not (err <= TOL_KERNEL * scale and agree == 1.0):
+        raise AssertionError(f'{name} disagrees with the eager kernel path')
+
+
 # ---------------------------------------------------------------- phases
 def main() -> int:
     import torch
@@ -320,11 +470,11 @@ def main() -> int:
         imgs = [rng.integers(0, 256, (SIZE, SIZE, 3), dtype=np.uint8)
                 for _ in range(N_IMAGES)]
         x_dev = torch.from_numpy(imgs[0][None]).cuda()
-        calls = []
-        with recording(calls), torch.inference_mode():
+        calls, per_forward = [], {}
+        with recording(calls), torch.inference_mode(), device_trace(per_forward):
             x, _, _ = model.data_preprocessor(x_dev, impl='cuda')
             model.predict(x, 'cuda')
-        torch.cuda.synchronize()
+        say(f'  CUDA launches of one forward (device trace): {per_forward}')
         errs = {name: [] for name in KERNEL_INFO}
         for name, op, args, kw in calls:
             tol = 0.0 if name == 'normalize_image' else TOL_KERNEL
@@ -388,12 +538,22 @@ def main() -> int:
 
     with phase('4 model'):
         kernels.reset_launch_counts()
-        res = inference_model(model, imgs, impl='cuda')
-        torch.cuda.synchronize()
+        device = {}
+        with device_trace(device):
+            res = inference_model(model, imgs, impl='cuda')
         launches = kernels.launch_counts()
-        say(f'  launches in {N_IMAGES} forwards: {launches}')
+        # one eager warm-up forward and N_IMAGES replays ran on the device
+        forwards = N_IMAGES + model._eval_step.captures
+        say(f'  wrapper launches (one eager warm-up forward, one capture): '
+            f'{launches}')
+        say(f'  CUDA launches on the device (trace of {forwards} forwards, '
+            f'{N_IMAGES} of them replayed): {device}')
         if not all(c for n, c in launches.items() if n not in OFF_PATH):
             raise AssertionError(f'a kernel never launched: {launches}')
+        want = {n: c * forwards for n, c in per_forward.items()}
+        if device != want:
+            raise AssertionError(f'the device ran {device} kernel launches, '
+                                 f'not {want}')
         plain = inference_model(model, imgs, impl='plain')
         for i, (a, b) in enumerate(zip(res, plain)):
             la, lb = a['seg_logits'], b['seg_logits']
@@ -473,13 +633,15 @@ def main() -> int:
             k = len(mine)
             rows.append(dict(
                 name=name, route='cuda', source=source, replaces=replaces,
-                launches=launches[name], max_abs_err=max(errs[name]),
+                launches=launches[name], device_launches=device[name],
+                max_abs_err=max(errs[name]),
                 ms=ms / k, plain_ms=plain_ms / k, bound_ms=bound / k,
                 bound_by=max(bound_by, key=bound_by.get), library_ms=None))
             units = ('TF32 tensor cores, 3xTF32' if name in TENSOR_CORE_KERNELS
                      else 'float32 pipes')
-            say(f'  {name}: {ms / k:.4f} ms/launch, {launches[name] / N_IMAGES:g} '
-                f'launches/forward, bound {bound / k:.4f} ms '
+            path_calls = sum(1 for n, *_ in calls if n == name)
+            say(f'  {name}: {ms / k:.4f} ms/launch, {path_calls} launches '
+                f'({per_forward[name]} CUDA launches)/forward, bound {bound / k:.4f} ms '
                 f'({rows[-1]["bound_by"]}, {units}; float32-pipe bound '
                 f'{old_bound / k:.4f} ms), plain {plain_ms / k:.4f} ms')
             earlier = {'sesp_block': ' / '.join(f'{t:.4f}' for t in EARLIER_SESP_MS),
@@ -488,6 +650,110 @@ def main() -> int:
             if name in earlier:
                 say(f'  {name} before its redesign (same card type): '
                     f'{earlier[name]} ms/launch')
+
+    from lednet_tpu_torch.config import Config
+    from lednet_tpu_torch.engine import (build_optimizer, create_train_state,
+                                         make_eval_step, make_train_step)
+    with phase('6 train'):
+        train_model = init_model(CONFIG, device='cuda',
+                                 generator=torch.Generator().manual_seed(SEED + 1))
+        cfg = train_model.cfg
+        opt, sched = build_optimizer(train_model, cfg.optim_wrapper,
+                                     cfg.param_scheduler)
+        train = make_train_step(train_model, opt, train_model.data_preprocessor)
+        state = create_train_state(train_model, opt, sched)
+        t_imgs, t_lbl = (t.cuda() for t in train_batch(rng, TRAIN_BATCH, SIZE))
+        torch.cuda.reset_peak_memory_stats()
+        for flags, n in (('TF32 off', 1 + TRAIN_STEPS),
+                         ("torch's defaults, cuDNN TF32 on", 3)):
+            torch.backends.cudnn.allow_tf32 = flags != 'TF32 off'
+            times = []
+            for i in range(n):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                state, logs = train(state, t_imgs, t_lbl)
+                end.record()
+                torch.cuda.synchronize()
+                times.append(start.elapsed_time(end))
+                vals = {k: v.item() for k, v in logs.items()}
+                say(f'  step {state.step} ({flags}): ' + ', '.join(
+                    f'{k} {v:.5f}' for k, v in vals.items()) +
+                    f', {times[-1]:.3f} ms')
+                if not all(np.isfinite(v) for v in vals.values()):
+                    raise AssertionError(f'step {state.step}: non-finite logs')
+            ms = sum(times[1:]) / (n - 1)
+            say(f'  train step, bs {TRAIN_BATCH} at {SIZE}x{SIZE} ({flags}): '
+                f'{ms:.3f} ms/step ({TRAIN_BATCH * 1000 / ms:.2f} img/s) over '
+                f'{n - 1} steps after a warm-up, on {card}')
+        torch.backends.cudnn.allow_tf32 = False
+        say(f'  peak memory allocated: '
+            f'{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB')
+        del train_model, opt, train, state, t_imgs, t_lbl, logs
+        torch.cuda.empty_cache()
+        for seed in TRAIN_CHECK_SEEDS:
+            s_imgs, s_lbl = train_batch(np.random.default_rng(seed), 2, 256)
+            for name, extra in (("the config's OHEM losses", {}),
+                                ('CrossEntropyLoss',
+                                 {'model.decode_head.loss_decode': CE_LOSSES})):
+                cfg = Config.fromfile(CONFIG)
+                cfg.merge_from_dict(dict(
+                    {'model.data_preprocessor.size': (256, 256)}, **extra))
+                cpu_run = train_once(cfg, 'cpu', s_imgs, s_lbl, seed)
+                with torch.backends.cudnn.flags(enabled=False):
+                    own_convs = train_once(cfg, 'cuda', s_imgs, s_lbl, seed)
+                hold_train(f'one step, seed {seed}, 2x256x256, {name}, '
+                           "PyTorch's own CUDA convs", own_convs, cpu_run,
+                           ('weights', 'bn_stats'))
+                hold_train(f'one step, seed {seed}, 2x256x256, {name}, cuDNN',
+                           train_once(cfg, 'cuda', s_imgs, s_lbl, seed),
+                           cpu_run, ('bn_stats',))
+
+    with phase('7 eval graph'):
+        step = make_eval_step(model, model.data_preprocessor)
+
+        def eager():
+            x, _, _ = model.data_preprocessor(x_dev, impl='cuda')
+            return model.predict(x, 'cuda')
+        with torch.inference_mode():
+            ref = eager()
+            check_logits('replay vs eager kernel path', step(x_dev), ref)
+        opt, sched = build_optimizer(model, model.cfg.optim_wrapper,
+                                     model.cfg.param_scheduler)
+        b_imgs, b_lbl = (t.cuda() for t in train_batch(rng, 2, SIZE))
+        make_train_step(model, opt, model.data_preprocessor)(
+            create_train_state(model, opt, sched), b_imgs, b_lbl)
+        model.eval()
+        with torch.inference_mode():
+            ref2 = eager()
+            moved = (ref2 - ref).abs().max().item()
+            check_logits('replay after a train step vs eager', step(x_dev), ref2)
+        say(f'  the train step moved the logits by up to {moved:.3e}; graphs '
+            f'captured by the step: {step.captures}')
+        if not (moved > 0 and step.captures == 2):
+            raise AssertionError('the step did not capture again after the '
+                                 'weights changed')
+        res = inference_model(model, imgs[0])
+        check_logits('inference_model vs eager',
+                     torch.from_numpy(res['seg_logits']), ref2[0].cpu())
+        with torch.inference_mode():
+            replay_ms = cuda_ms(lambda: step(x_dev), reps=50, warmup=5)
+            eager_ms = cuda_ms(eager, reps=50, warmup=5)
+        say(f'  forward 1x{SIZE}x{SIZE}: replayed graph {replay_ms:.3f} ms '
+            f'({1000 / replay_ms:.1f} img/s), eager kernel path {eager_ms:.3f} '
+            f'ms ({1000 / eager_ms:.1f} img/s); graphs captured: step '
+            f'{step.captures}, inference_model {model._eval_step.captures}')
+        with torch.inference_mode():
+            sync_replay, sync_eager = (synced_ms(f, reps=50, warmup=5)
+                                       for f in (lambda: step(x_dev), eager))
+        t0 = time.perf_counter()
+        for _ in range(200):
+            step.weights_key()
+        key_ms = (time.perf_counter() - t0) / 200 * 1e3
+        say(f'  one frame at a time (host clock, synchronized after each of '
+            f'50 calls): replayed graph {sync_replay:.3f} ms, eager kernel '
+            f'path {sync_eager:.3f} ms; host time of the step\'s weights '
+            f'check {key_ms:.3f} ms per call')
 
     say(card)
     say(json.dumps({'kernels': rows}))

@@ -1,9 +1,9 @@
 """High-level inference APIs: ``init_model`` and ``inference_model``.
 
 Counterpart of ``lednet_tpu/apis/inference.py`` (``init_model`` :24,
-``inference_model`` :84).  ``init_model`` returns the segmentor itself (an
-``nn.Module`` in eval mode on ``device``) with ``cfg``, ``data_preprocessor``
-and ``dataset_meta`` attached.  Entry points run on ``'cuda'`` unless the
+``inference_model`` :84, its cached eval step :72).  ``init_model`` returns
+the segmentor itself (an ``nn.Module`` in eval mode on ``device``) with
+``cfg``, ``data_preprocessor`` and ``dataset_meta`` attached.  Entry points run on ``'cuda'`` unless the
 caller passes ``device='cpu'``; with no GPU they raise.
 
 The test pipeline (``LoadImageFromFile``/``LoadImageFromNDArray`` -> keep-ratio
@@ -13,7 +13,7 @@ already at the pipeline's scale need neither.
 """
 from __future__ import annotations
 
-import contextlib
+import functools
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -21,6 +21,7 @@ import torch
 
 from lednet_tpu_torch.config import Config
 from lednet_tpu_torch.convert import flax_to_state_dict, load_npz_variables
+from lednet_tpu_torch.engine.state import EvalStep, float32_math, make_eval_step
 from lednet_tpu_torch.models.layers import init_weights
 from lednet_tpu_torch.models.segmentors.encoder_decoder import postprocess_logits
 from lednet_tpu_torch.registry import MODELS
@@ -132,21 +133,15 @@ def _prepare_data(imgs, cfg) -> Tuple[List[Dict], bool]:
     return data, is_batch
 
 
-@contextlib.contextmanager
-def _float32_math():
-    """Float32 convs and matmuls in full float32 inside, the caller's flags
-    restored after.  torch's defaults let cuDNN run float32 convs in TF32
-    (10-bit mantissas); on the flagship that moves the logits by a few 1e-3 of
-    their largest value and flips pixels of the argmax."""
-    saved = (torch.backends.cudnn.allow_tf32,
-             torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        (torch.backends.cudnn.allow_tf32,
-         torch.backends.cuda.matmul.allow_tf32) = saved
+def _cached_eval_step(model: torch.nn.Module) -> EvalStep:
+    """One eval step per model, kept on it, so that its graphs are captured
+    once per input shape (a fresh step per call would capture every call)."""
+    step = model.__dict__.get('_eval_step')
+    if step is None:
+        step = make_eval_step(model, model.data_preprocessor,
+                              mode=model.test_cfg.get('mode', 'whole'))
+        model._eval_step = step
+    return step
 
 
 @torch.inference_mode()
@@ -155,17 +150,32 @@ def inference_model(model: torch.nn.Module, img, batch_size: int = 1,
     """Whole-image inference on BGR uint8 numpy images (or file paths);
     returns dict(s) with ``pred_sem_seg`` (H, W) int32, ``seg_logits``
     (H, W, C) float32 and ``metainfo``.  Same-shape inputs run in batches of
-    ``batch_size``.  ``impl`` selects the kernels (``'cuda'``) or the plain
-    module forms (``'plain'``); ``None`` follows the model's device.  The
-    model runs in full float32 (:func:`_float32_math`), whatever the
+    ``batch_size``, each through the model's eval step
+    (:func:`lednet_tpu_torch.engine.make_eval_step`): on a CUDA model a
+    replayed CUDA graph of the kernel path, on a CPU model the eager
+    forward.  ``impl='plain'`` runs the plain module forms eagerly instead,
+    and ``impl='cuda'`` insists on the kernels.  The model runs in full
+    float32 (:func:`lednet_tpu_torch.engine.float32_math`), whatever the
     caller's TF32 flags."""
-    with _float32_math():
+    with float32_math():
         return _inference(model, img, batch_size, impl)
+
+
+def _plain_forward(model, inputs):
+    if model.data_preprocessor is not None:
+        inputs, _, _ = model.data_preprocessor(inputs, impl='plain')
+    return model.predict(inputs, 'plain')
 
 
 def _inference(model, img, batch_size, impl):
     data, is_batch = _prepare_data(img, model.cfg)
     device = next(model.parameters()).device
+    if impl == 'cuda' and device.type != 'cuda':
+        raise ValueError(f"impl='cuda' needs a CUDA model; it is on {device}")
+    if impl not in (None, 'cuda', 'plain'):
+        raise ValueError(f"impl must be 'cuda', 'plain' or None, got {impl!r}")
+    forward = (functools.partial(_plain_forward, model) if impl == 'plain'
+               else _cached_eval_step(model))
     groups: Dict = {}
     padded = []
     for idx, item in enumerate(data):
@@ -182,12 +192,8 @@ def _inference(model, img, batch_size, impl):
         for c in range(0, len(indices), step):
             chunk = indices[c:c + step]
             inputs = torch.from_numpy(np.stack([padded[i][0] for i in chunk]))
-            inputs = inputs.to(device)
-            if model.data_preprocessor is not None:
-                inputs, _, _ = model.data_preprocessor(inputs, impl=impl)
-            else:
-                inputs = inputs.float()
-            logits = model.predict(inputs, impl)
+            x = inputs.to(device)
+            logits = forward(x if model.data_preprocessor is not None else x.float())
             for j, i in enumerate(chunk):
                 meta = data[i]['metainfo']
                 pad_h, pad_w = padded[i][1], padded[i][2]

@@ -80,7 +80,7 @@ class LEDNet(nn.Module):
     def module_stem(self, x):
         """The stem's module form: x1 (1/2), x2 (1/4) and the stem blocks'
         output at 1/4 (after the trailing ReLU)."""
-        x1 = self.stem_conv1(x.float())
+        x1 = self.stem_conv1(x.to(self.stem_conv1.conv.weight.dtype))
         x2 = self.stem_conv2(x1)
         return x1, x2, F.relu(self.stem_block2(self.stem_block1(x2)))
 
@@ -115,7 +115,8 @@ class LEDNet(nn.Module):
                 pair_fragments(ws) if splittable else None)
 
     def forward(self, x, impl: Optional[str] = None):
-        """x: (B, 3, H, W) float32 or bfloat16 (promoted to float32)."""
+        """x: (B, 3, H, W) float32 or bfloat16 (promoted to the weights'
+        dtype, float32)."""
         in_h, in_w = x.shape[-2:]
         out_size = (-(-in_h // 8), -(-in_w // 8))
         if not self.training and resolve_impl(impl, x) == 'cuda':

@@ -1,8 +1,34 @@
-"""Decode-head bricks: ``ClsSeg`` (dropout + 1x1 classifier).
-Counterpart of ``lednet_tpu/models/decode_heads/base.py`` :52."""
+"""Decode-head bricks: ``ClsSeg`` (dropout + 1x1 classifier), the loss
+builder and the label selector.
+
+Counterpart of ``lednet_tpu/models/decode_heads/base.py`` (``build_losses``
+:26, ``ClsSeg`` :52, ``sem_label`` :81).
+"""
 from __future__ import annotations
 
+from typing import Any, List
+
 import torch.nn as nn
+
+from lednet_tpu_torch.registry import MODELS
+
+
+def build_losses(loss_decode) -> List[Any]:
+    """Build the (possibly several) loss callables of a config."""
+    if loss_decode is None:
+        loss_decode = dict(type='CrossEntropyLoss', use_sigmoid=False,
+                           loss_weight=1.0)
+    if isinstance(loss_decode, (list, tuple)):
+        return [MODELS.build(dict(c)) for c in loss_decode]
+    return [MODELS.build(dict(loss_decode))]
+
+
+def sem_label(seg_label):
+    """Labels may come as a dict that also carries auxiliary maps; the
+    semantic map is ``gt_seg_map``."""
+    if isinstance(seg_label, dict):
+        return seg_label['gt_seg_map']
+    return seg_label
 
 
 class ClsSeg(nn.Module):

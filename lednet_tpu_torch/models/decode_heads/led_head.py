@@ -1,17 +1,20 @@
 """LED-Net decode head, NCHW.
 
 Counterpart of ``lednet_tpu/models/decode_heads/led_head.py`` (``_BaseHead``
-:33, ``LEDHead`` :72, ``_refine`` :172, ``predict_by_feat`` :203):
+:33, ``_dual_losses`` :55, ``LEDHead`` :72, ``_refine`` :172,
+``loss_by_feat`` :182, ``predict_by_feat`` :203):
 
 - ``head``: pre-act 3x3 ConvModule + BN + ReLU, then ``cls`` on the context
   feature; ``head_x1``/``head_x2``: the same base-head stack mapping the stem
   taps (in_channels/4 channels) straight to class logits at 1/2 and 1/4;
 - predict: the progressive pyramid (context logit upsampled to ceil(size/4)
-  + head_x2, to ceil(size/2) + head_x1, then to size).
+  + head_x2, to ceil(size/2) + head_x1, then to size);
+- training (``loss_by_feat``): the same pyramid at the exact ``//`` sizes
+  for the context and the spatial logit; ``loss_context`` = losses[0],
+  ``loss_spatial`` = losses[1], ``acc_seg`` on the refined context logit.
 
 The packed ``_base_head_packed`` of the JAX package is a TPU layout rewrite
-and is not carried over; the port runs the plain ``head_x1`` path.  The
-training losses (``loss_by_feat``) are later work.
+and is not carried over; the port runs the plain ``head_x1`` path.
 """
 from __future__ import annotations
 
@@ -20,8 +23,10 @@ from typing import Dict, Optional, Sequence
 import torch.nn as nn
 import torch.nn.functional as F
 
-from lednet_tpu_torch.models.decode_heads.base import ClsSeg
+from lednet_tpu_torch.models.decode_heads.base import (ClsSeg, build_losses,
+                                                       sem_label)
 from lednet_tpu_torch.models.layers import ConvModule, Norm2d
+from lednet_tpu_torch.models.losses.cross_entropy import accuracy
 from lednet_tpu_torch.ops.resize import resize_bilinear
 from lednet_tpu_torch.registry import MODELS
 
@@ -46,16 +51,33 @@ def _ceil_div(a: int, b: int) -> int:
     return -(-a // b)
 
 
+def _dual_losses(loss_decode):
+    """The (context, spatial) losses; the config contract's OHEM pair
+    (weights 1.0 / 0.4) when unset, one loss used for both."""
+    if loss_decode is None:
+        loss_decode = [
+            dict(type='OhemCrossEntropy', thres=0.9, min_kept=131072,
+                 loss_weight=1.0),
+            dict(type='OhemCrossEntropy', thres=0.9, min_kept=131072,
+                 loss_weight=0.4),
+        ]
+    losses = build_losses(loss_decode)
+    if len(losses) == 1:
+        losses = losses * 2
+    return losses
+
+
 @MODELS.register_module()
 class LEDHead(nn.Module):
 
     def __init__(self, in_channels: int, channels: int, num_classes: int,
                  dropout_ratio: float = 0.1, norm_cfg: Optional[Dict] = None,
-                 align_corners: bool = False,
+                 align_corners: bool = False, ignore_index: int = 255,
                  loss_decode: Optional[Sequence[Dict]] = None):
         super().__init__()
         self.align_corners = align_corners
-        self.loss_decode = loss_decode      # read by training (later work)
+        self.ignore_index = ignore_index
+        self.losses = _dual_losses(loss_decode)
         stem_channels = in_channels // 4    # LEDNet's x1/x2 taps: c of its 4c
         self.head = _BaseHead(in_channels, channels, norm_cfg)
         self.cls = ClsSeg(channels, num_classes, dropout_ratio)
@@ -88,6 +110,29 @@ class LEDHead(nn.Module):
             logit, (_ceil_div(size[0], 2), _ceil_div(size[1], 2)),
             self.align_corners)
         return resize_bilinear(logit, size, self.align_corners)
+
+    def loss_by_feat(self, seg_logits, seg_label) -> Dict:
+        """Training losses of (context, spatial, head_x1, head_x2) logits
+        against (B, H, W) labels (or a dict with ``gt_seg_map``)."""
+        seg_label = sem_label(seg_label)
+        context_logit, spatial_logit, head_x1, head_x2 = seg_logits
+        size = tuple(seg_label.shape[-2:])
+        # training uses exact // sizes (labels are crops of even size)
+        quarter = (size[0] // 4, size[1] // 4)
+        half = (size[0] // 2, size[1] // 2)
+        refined = []
+        for logit in (context_logit, spatial_logit):
+            logit = head_x2 + resize_bilinear(logit, quarter, self.align_corners)
+            logit = head_x1 + resize_bilinear(logit, half, self.align_corners)
+            refined.append(resize_bilinear(logit, size, self.align_corners))
+        ctx, spa = refined
+        return {
+            'loss_context': self.losses[0](ctx, seg_label,
+                                           ignore_index=self.ignore_index),
+            'loss_spatial': self.losses[1](spa, seg_label,
+                                           ignore_index=self.ignore_index),
+            'acc_seg': accuracy(ctx, seg_label, self.ignore_index),
+        }
 
     def predict_by_feat(self, seg_logits, size=None):
         x_c, head_x1, head_x2 = seg_logits

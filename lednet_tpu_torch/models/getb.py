@@ -10,6 +10,8 @@ outside any Pallas kernel too.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn as nn
@@ -42,6 +44,17 @@ def _reflect_index(n: int, pad: int) -> np.ndarray:
     return np.where(q < n, q, 2 * (n - 1) - q)
 
 
+@functools.lru_cache(maxsize=None)
+def _reflect_device_index(n: int, pad: int, device: torch.device) -> torch.Tensor:
+    """:func:`_reflect_index` on ``device``, kept so that a forward after the
+    first copies nothing from the host (a CUDA graph cannot capture a copy
+    from pageable host memory).  Never evicted: a captured graph reads it at
+    every replay.  Made outside inference mode, so that training may use it
+    too."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(_reflect_index(n, pad)).to(device)
+
+
 def _reflect_pad(x: torch.Tensor, pad_h: int, pad_w: int) -> torch.Tensor:
     """Reflect-pad bottom/right of an NCHW tensor."""
     H, W = x.shape[-2:]
@@ -49,8 +62,7 @@ def _reflect_pad(x: torch.Tensor, pad_h: int, pad_w: int) -> torch.Tensor:
         return F.pad(x, (0, pad_w, 0, pad_h), mode='reflect') \
             if pad_h or pad_w else x
     for dim, n, pad in ((-2, H, pad_h), (-1, W, pad_w)):
-        idx = torch.from_numpy(_reflect_index(n, pad)).to(x.device)
-        x = x.index_select(dim, idx)
+        x = x.index_select(dim, _reflect_device_index(n, pad, x.device))
     return x
 
 

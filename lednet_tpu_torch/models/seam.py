@@ -9,6 +9,8 @@ package is a TPU layout rewrite of the same math and is not carried over.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -21,9 +23,19 @@ _FUSION = (0.6, 0.3, 0.1)
 _THRESHOLD = 0.1
 
 
+@functools.lru_cache(maxsize=None)
+def _laplacian(dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """The (1, 1, 3, 3) kernel on ``device``, kept so that a forward after
+    the first copies nothing from the host (a CUDA graph cannot capture a
+    copy from pageable host memory).  Never evicted: a captured graph reads
+    it at every replay.  Made outside inference mode, so that training may
+    use it too."""
+    with torch.inference_mode(False):
+        return torch.tensor(_LAPLACIAN, dtype=dtype, device=device).view(1, 1, 3, 3)
+
+
 def _laplacian_conv(x: torch.Tensor, stride: int) -> torch.Tensor:
-    kernel = torch.tensor(_LAPLACIAN, dtype=x.dtype, device=x.device)
-    return F.conv2d(x, kernel.view(1, 1, 3, 3), stride=stride, padding=1)
+    return F.conv2d(x, _laplacian(x.dtype, x.device), stride=stride, padding=1)
 
 
 def _binarize(t: torch.Tensor) -> torch.Tensor:

@@ -11,6 +11,7 @@ torch's coordinate math; here torch computes it natively:
 """
 from __future__ import annotations
 
+import functools
 from typing import Sequence
 
 import numpy as np
@@ -34,14 +35,23 @@ def _nearest_coords(out_size: int, in_size: int) -> np.ndarray:
     return np.clip(src.astype(np.int64), 0, in_size - 1)
 
 
+@functools.lru_cache(maxsize=None)
+def _nearest_index(out_size: int, in_size: int, device: torch.device) -> torch.Tensor:
+    """:func:`_nearest_coords` on ``device``, kept so that a forward after
+    the first copies nothing from the host (a CUDA graph cannot capture a
+    copy from pageable host memory).  Never evicted: a captured graph reads
+    it at every replay.  Made outside inference mode, so that training may
+    use it too."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(_nearest_coords(out_size, in_size)).to(device)
+
+
 def resize_nearest(x: torch.Tensor, size: Sequence[int]) -> torch.Tensor:
     """Nearest-neighbour resize of an NCHW tensor (legacy rounding)."""
     in_h, in_w = x.shape[-2], x.shape[-1]
     out_h, out_w = int(size[0]), int(size[1])
     if in_h != out_h:
-        idx = torch.from_numpy(_nearest_coords(out_h, in_h)).to(x.device)
-        x = x.index_select(-2, idx)
+        x = x.index_select(-2, _nearest_index(out_h, in_h, x.device))
     if in_w != out_w:
-        idx = torch.from_numpy(_nearest_coords(out_w, in_w)).to(x.device)
-        x = x.index_select(-1, idx)
+        x = x.index_select(-1, _nearest_index(out_w, in_w, x.device))
     return x

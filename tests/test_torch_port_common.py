@@ -93,7 +93,7 @@ def rel_err(out, ref):
 def test_import_pulls_in_no_jax():
     code = ('import sys; import lednet_tpu_torch, lednet_tpu_torch.models, '
             'lednet_tpu_torch.apis, lednet_tpu_torch.convert, '
-            'lednet_tpu_torch.ops.kernels; '
+            'lednet_tpu_torch.engine, lednet_tpu_torch.ops.kernels; '
             'bad = [m for m in sys.modules if m.split(".")[0] in '
             '("jax", "jaxlib", "flax", "lednet_tpu")]; print(bad)')
     out = subprocess.run([sys.executable, '-c', code], cwd=REPO,

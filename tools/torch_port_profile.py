@@ -16,6 +16,18 @@ reads 0), the top device kernels by time and the top aten ops by the device
 time they launched, and last the whole report as one JSON line.  Needs a
 GPU.
 
+    python3 tools/torch_port_profile.py --graph
+
+adds a third path: the forward as the eval step replays it
+(``lednet_tpu_torch.engine.make_eval_step``: one CUDA graph of preprocess +
+``predict`` on the kernel path), with the same readings.  Every run also
+reads kernel E's device time per launch at the pyramid shapes of the
+forward's SESP calls (with and without the v2 stage, on seeded random
+maps, as ``chip_smoke.py`` phase 3b checks them): no model calls E, so no
+forward shows it.  ``--ops FILE`` also writes every device op (kernel,
+memcpy, memset) of each path with its calls per forward to FILE, to diff
+two trees' forwards.
+
     python3 tools/torch_port_profile.py --sesp-sweep
 
 instead times kernel D's fused launch at every launch geometry that
@@ -33,14 +45,6 @@ import sys
 import time
 
 CONFIG = 'configs/LED_Net/lednet_80k_cityscapes-1024x1024.py'
-# the port's ops -> the __global__ functions of lednet_tpu_torch/csrc
-PORT_KERNELS = {
-    'normalize_image': ('normalize_kernel',),
-    'stem_convs': ('stem_fused_kernel',),
-    'basic_pair': ('basic_block_kernel',),
-    'sesp_block': ('sesp_reduce_kernel', 'sesp_fused_kernel'),
-    'sesp_pyramid': ('sesp_pyramid_kernel',),
-}
 
 
 def _time_us(evt, names):
@@ -58,14 +62,18 @@ def _device_us(evt):
     return _time_us(evt, ('device_time_total', 'cuda_time_total'))
 
 
-def profile_path(model, x, impl, iters):
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+def eager_forward(model, x, impl):
     def forward():
         y, _, _ = model.data_preprocessor(x, impl=impl)
         return model.predict(y, impl)
+    return forward
+
+
+def profile_path(forward, impl, iters):
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from lednet_tpu_torch.ops.kernels import DEVICE_FUNCTIONS
 
     with torch.inference_mode():
         for _ in range(5):
@@ -90,7 +98,7 @@ def profile_path(model, x, impl, iters):
             and e.key.startswith('aten::') and _device_us(e) > 0]
 
     port = {}
-    for op, fns in PORT_KERNELS.items():
+    for op, fns in DEVICE_FUNCTIONS.items():
         per_fn = {fn: [e for e in device if f'lednet::{fn}' in e.key]
                   for fn in fns}
         port[op] = dict(
@@ -109,16 +117,13 @@ def profile_path(model, x, impl, iters):
                 idle_share=max(0.0, 1.0 - busy_ms / wall_ms),
                 device_ops_per_forward=n_ops, port_kernels=port,
                 top_kernels=rows(device, _self_device_us),
-                top_aten_ops=rows(aten, _device_us))
+                top_aten_ops=rows(aten, _device_us),
+                device_ops={e.key: e.count / iters for e in device})
 
 
-def sesp_sweep(model, x):
-    """Time every fused-launch geometry of kernel D at the forward's SESP
-    call sites (see the module docstring)."""
-    import torch
+def _sesp_calls(model, x):
+    """(args, kwargs) of every kernel-D call of one kernel-path forward."""
     import lednet_tpu_torch.models.espnet as espnet
-    from lednet_tpu_torch.ops.kernels import _build
-    kmod = sys.modules['lednet_tpu_torch.ops.kernels.sesp_pyramid']
     calls, op = [], espnet.sesp_block
 
     def record(*a, **kw):
@@ -130,6 +135,52 @@ def sesp_sweep(model, x):
         model.predict(y, 'cuda')
     finally:
         espnet.sesp_block = op
+    return calls
+
+
+def pyramid_device_time(model, x, iters):
+    """Kernel E's device ms per launch at each distinct pyramid shape of the
+    forward's SESP calls, with the v2 stage and without."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from lednet_tpu_torch.ops.kernels import sesp_pyramid
+    gen = torch.Generator().manual_seed(0)
+    shapes = {}
+    for a, kw in _sesp_calls(model, x):
+        xx, dw1, dw2 = a[0], a[4], a[5]
+        shapes.setdefault((dw1.shape[1], *xx.shape[2:], tuple(kw['rates']),
+                           kw['stride']), (xx.shape[0], dw1, dw2))
+    launches = []
+    for (n, H, W, rates, stride), (B, dw1, dw2) in shapes.items():
+        red = torch.randn((B, n, H, W), generator=gen).cuda()
+        for d2 in (dw2, None):
+            launches.append(lambda red=red, dw1=dw1, d2=d2, rates=rates,
+                            stride=stride: sesp_pyramid(red, dw1, d2, rates,
+                                                        stride=stride,
+                                                        impl='cuda'))
+    for launch in launches:
+        launch()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            for launch in launches:
+                launch()
+        torch.cuda.synchronize()
+    evts = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+            and 'lednet::sesp_pyramid_kernel' in e.key]
+    count = sum(e.count for e in evts)
+    return dict(shapes=len(launches), launches=count,
+                ms_per_launch=sum(_self_device_us(e) for e in evts) / 1e3 / count)
+
+
+def sesp_sweep(model, x):
+    """Time every fused-launch geometry of kernel D at the forward's SESP
+    call sites (see the module docstring)."""
+    import torch
+    from lednet_tpu_torch.ops.kernels import _build
+    kmod = sys.modules['lednet_tpu_torch.ops.kernels.sesp_pyramid']
+    calls = _sesp_calls(model, x)
     lib, stream = _build.library(), torch.cuda.current_stream().cuda_stream
     sites, seen = [], set()
     for a, kw in calls:
@@ -197,6 +248,11 @@ def main() -> int:
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument('--size', type=int, default=1024)
     ap.add_argument('--iters', type=int, default=20)
+    ap.add_argument('--graph', action='store_true',
+                    help='also profile the replayed CUDA graph of the eval step')
+    ap.add_argument('--ops', metavar='FILE',
+                    help='write every device op of each path, with its calls '
+                         'per forward, to FILE as JSON')
     ap.add_argument('--sesp-sweep', action='store_true',
                     help="time every launch geometry of kernel D's fused "
                          'launch at the SESP call sites instead')
@@ -227,8 +283,16 @@ def main() -> int:
               flush=True)
         return 0
     report = dict(card=card, size=args.size, iters=args.iters, paths=[])
-    for impl in ('cuda', 'plain'):
-        r = profile_path(model, x, impl, args.iters)
+    paths = [('cuda', eager_forward(model, x, 'cuda')),
+             ('plain', eager_forward(model, x, 'plain'))]
+    if args.graph:
+        from lednet_tpu_torch.engine import make_eval_step
+        step = make_eval_step(model, model.data_preprocessor)
+        paths.append(('graph', lambda: step(x)))
+    ops = {}
+    for impl, forward in paths:
+        r = profile_path(forward, impl, args.iters)
+        ops[impl] = r.pop('device_ops')
         report['paths'].append(r)
         print(f"[{impl}] wall {r['wall_ms']:.3f} ms/forward, device busy "
               f"{r['device_busy_ms']:.3f} ms, idle share {r['idle_share']:.3f}, "
@@ -243,6 +307,14 @@ def main() -> int:
             for t in r[title]:
                 print(f"    {t['ms_per_forward']:8.4f} ms  x{t['calls_per_forward']:5.1f}  "
                       f"{t['name']}", flush=True)
+    with torch.inference_mode():
+        report['sesp_pyramid'] = e = pyramid_device_time(model, x, args.iters)
+    print(f"[sesp_pyramid] {e['ms_per_launch']:.4f} ms device time per launch "
+          f"over {e['launches']} launches at {e['shapes']} pyramid shapes",
+          flush=True)
+    if args.ops:
+        with open(args.ops, 'w') as f:
+            json.dump(dict(card=card, size=args.size, paths=ops), f, indent=1)
     print(json.dumps(report), flush=True)
     return 0
 
