@@ -73,9 +73,30 @@ printing one flushed line with its seconds:
    host time of the step's check of the weights, and the number of graphs
    captured.
 
+8. entry points: a Cityscapes-layout tree of 12 train and 4 val seeded
+   2048x1024 PNG frames in two cities, written by the port's encoder into
+   a temporary directory; kernels A-D held to their plain versions at the
+   val shape 8 x 1024 x 2048 (as phase 3, with a device trace of their
+   launches); ``tools/torch_port_train.py`` on the flagship config as a
+   subprocess (batch 6 of 1024x1024 crops, 4 loader threads, 20 steps, val
+   every 10, checkpoints every 10, a log line every 5): finite losses, two
+   val results, ``iter_10.pth``, ``iter_20.pth`` and ``last_checkpoint``;
+   ``--resume`` to 30, which must start at step 20 with the schedule's lr
+   there; ``tools/torch_port_test.py`` on ``iter_20.pth``, whose metrics
+   must equal the val at step 20 exactly; ``inference_model`` on a PNG path
+   and on a 1280x720 array with cv2 and PIL blocked; then the card's own
+   numbers from a ``Runner`` in this process: train iteration time and the
+   share of it spent waiting on the loader (steps 6-20), the device idle
+   share over steps 6-15 (``torch.profiler``), the eval step's time at 8 x
+   1024 x 2048 (CUDA events) and ``Runner.val``'s wall time, peak memory of
+   train and of train + val; launch counts set to 0 before that train +
+   val run and read after (A-D must launch, in val).
+
 It prints the card line and a ``{"kernels": [...]}`` line (``launches``:
 the wrappers' count in phase 4; ``device_launches``: the CUDA launches the
-device trace saw there), and last ``{"ok": true, "device": {...}}``.
+device trace saw there; ``entry_point_launches`` and
+``entry_point_device_launches``: the same of phase 8's train + val run),
+and last ``{"ok": true, "device": {...}}``.
 Without CUDA, or without the package beside it, it exits non-zero and
 prints no result.
 """
@@ -104,6 +125,10 @@ TOL_TRAIN_WEIGHT = dict(atol=1e-4, rtol=5e-3)
 TOL_TRAIN_MEAN = dict(atol=1e-5, rtol=0.0)
 TOL_TRAIN_VAR = dict(atol=1e-5, rtol=1e-4)
 TRAIN_CHECK_SEEDS = (2, 3, 4, 5)   # the card's step against the CPU's
+# phase 8: the fabricated Cityscapes tree and the val shape
+TREE_TRAIN, TREE_VAL = 12, 4
+FRAME_HW = (1024, 2048)
+VAL_SHAPE = (8,) + FRAME_HW         # val_batch_size x a Cityscapes frame
 CE_LOSSES = [dict(type='CrossEntropyLoss', loss_weight=1.0),
              dict(type='CrossEntropyLoss', loss_weight=0.4)]
 MIN_ARGMAX_AGREEMENT = 0.999
@@ -194,6 +219,12 @@ def device_trace(counts):
     from torch.profiler import ProfilerActivity, profile
     from lednet_tpu_torch.ops import kernels
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        # a session can miss the first few device activities it sees (up to
+        # three kernels in phase 8): spend them on tiny kernels of no port op
+        pad = torch.zeros(1, device='cuda')
+        for _ in range(64):
+            pad.add_(1)
+        torch.cuda.synchronize()
         yield
         torch.cuda.synchronize()
     counts.update(kernels.device_launches(prof.key_averages()))
@@ -412,6 +443,256 @@ def check_logits(name, out, ref):
         f'{scale:.3f}), argmax agreement {agree:.6f}')
     if not (err <= TOL_KERNEL * scale and agree == 1.0):
         raise AssertionError(f'{name} disagrees with the eager kernel path')
+
+
+def run_cli(args, timeout=600):
+    """Run a port CLI as a subprocess from the repo root; returns its
+    stdout lines.  A non-zero exit raises with the end of its output."""
+    proc = subprocess.run([sys.executable, *args], capture_output=True,
+                          text=True, timeout=timeout)
+    if proc.returncode != 0:
+        raise AssertionError(f'{args[0]} exited {proc.returncode}:\n'
+                             f'{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}')
+    return proc.stdout.splitlines()
+
+
+def train_log(lines):
+    """{step: (loss, iter_time, data_time)} of the console lines and
+    {step: metrics} of the val lines."""
+    import ast
+    import re
+    iters, vals = {}, {}
+    for line in lines:
+        m = re.match(r'Iter \[(\d+)/\d+\]', line)
+        if m:
+            field = {k: float(v) for k, v in
+                     re.findall(r'(?:^|  )(loss|time|data_time): (\S+?)s?(?=  |$)',
+                                line)}
+            iters[int(m.group(1))] = (field['loss'], field['time'],
+                                      field['data_time'])
+        m = re.match(r'val @ (\d+): (\{.*\})$', line)
+        if m:
+            vals[int(m.group(1))] = ast.literal_eval(m.group(2))
+    return iters, vals
+
+
+def entry_points(model, card, expected):
+    """Phase 8: the train/val/test entry points on a fabricated Cityscapes
+    tree (``expected``: phase 3's CUDA launches of one forward); returns the
+    kernels' wrapper launches and device launches of the in-process train +
+    val run."""
+    import shutil
+    import tempfile
+    import torch
+    from lednet_tpu_torch.apis import inference_model
+    from lednet_tpu_torch.config import Config
+    from lednet_tpu_torch.datasets import imageio
+    from lednet_tpu_torch.datasets.synthetic import make_cityscapes_tree
+    from lednet_tpu_torch.engine.optim import build_lr_schedule
+    from lednet_tpu_torch.engine.runner import Runner
+    from lednet_tpu_torch.ops import kernels
+    from torch.profiler import ProfilerActivity, profile
+
+    tmp = tempfile.mkdtemp(prefix='lednet_smoke_')
+    try:
+        t0 = time.perf_counter()
+        data = make_cityscapes_tree(os.path.join(tmp, 'cityscapes'),
+                                    n_train=TREE_TRAIN, n_val=TREE_VAL,
+                                    size_hw=FRAME_HW, seed=SEED)
+        say(f'  fabricated {TREE_TRAIN} train and {TREE_VAL} val frames at '
+            f'{FRAME_HW[1]}x{FRAME_HW[0]} in {time.perf_counter() - t0:.2f} s')
+
+        # kernels A-D at the val shape, against their plain versions
+        gen = torch.Generator().manual_seed(SEED + 8)
+        x8 = torch.randint(0, 256, VAL_SHAPE + (3,), generator=gen,
+                           dtype=torch.uint8).cuda()
+        calls, per_forward = [], {}
+        with torch.inference_mode():
+            x, _, _ = model.data_preprocessor(x8, impl='cuda')
+            model.predict(x, 'cuda')          # warm-up at the new shape
+            with recording(calls), device_trace(per_forward):
+                x, _, _ = model.data_preprocessor(x8, impl='cuda')
+                model.predict(x, 'cuda')
+        say(f'  CUDA launches of one forward at {VAL_SHAPE} (device trace): '
+            f'{per_forward}')
+        if per_forward != expected:
+            raise AssertionError(f'the device ran {per_forward} kernel launches '
+                                 f'at {VAL_SHAPE}, not those of phase 3, '
+                                 f'{expected}')
+        errs = {}
+        for name, op, args, kw in calls:
+            check_against_plain(name, op, args, kw,
+                                0.0 if name == 'normalize_image' else TOL_KERNEL,
+                                errs.setdefault(name, []))
+        missing = [n for n in KERNEL_INFO if n not in errs and n not in OFF_PATH]
+        if missing:
+            raise AssertionError(f'the forward at {VAL_SHAPE} called no {missing}')
+        del calls, x, x8
+        torch.cuda.empty_cache()
+
+        options = [f'{k}.dataset.data_root={data}' for k in
+                   ('train_dataloader', 'val_dataloader', 'test_dataloader')]
+        work = os.path.join(tmp, 'work')
+        train = ['tools/torch_port_train.py', CONFIG, '--work-dir', work,
+                 '--cfg-options', *options, 'train_cfg.val_interval=10',
+                 'default_hooks.checkpoint.interval=10',
+                 'default_hooks.logger.interval=5']
+        t0 = time.perf_counter()
+        iters, vals = train_log(run_cli(train + ['train_cfg.max_iters=20']))
+        say(f'  train CLI, 20 steps: {time.perf_counter() - t0:.2f} s; loss at '
+            + ', '.join(f'{k}: {v[0]:.4f}' for k, v in iters.items())
+            + f'; val at {sorted(vals)}: {vals.get(20)}')
+        if sorted(iters) != [5, 10, 15, 20] or not all(
+                np.isfinite(v[0]) for v in iters.values()):
+            raise AssertionError(f'train log lines: {iters}')
+        files = sorted(os.listdir(work))
+        if sorted(vals) != [10, 20] or not {'iter_10.pth', 'iter_20.pth',
+                                            'last_checkpoint'} <= set(files):
+            raise AssertionError(f'val at {sorted(vals)}, files {files}')
+
+        t0 = time.perf_counter()
+        lines = run_cli(train + ['train_cfg.max_iters=30', '--resume'])
+        resumed = [l for l in lines if l.startswith('resumed from')]
+        iters2, vals2 = train_log(lines)
+        cfg = Config.fromfile(CONFIG)
+        lr20 = build_lr_schedule(cfg.param_scheduler,
+                                 cfg.optim_wrapper.optimizer.lr)(20)
+        say(f'  resume CLI to 30: {time.perf_counter() - t0:.2f} s; '
+            f'{resumed}; steps {sorted(iters2)}; val at {sorted(vals2)}')
+        want = f'iter_20.pth at step 20 (iter 20), lr {lr20:.6e}'
+        if len(resumed) != 1 or want not in resumed[0] or \
+                sorted(iters2) != [25, 30] or sorted(vals2) != [30]:
+            raise AssertionError(f'resume: {resumed}, want {want!r}')
+
+        t0 = time.perf_counter()
+        lines = run_cli(['tools/torch_port_test.py', CONFIG,
+                         os.path.join(work, 'iter_20.pth'), '--work-dir',
+                         os.path.join(tmp, 'test'), '--cfg-options', *options])
+        tested = json.loads(lines[-1])
+        say(f'  test CLI on iter_20.pth: {time.perf_counter() - t0:.2f} s; '
+            f'{tested} (val at step 20: {vals[20]})')
+        if tested != vals[20]:
+            raise AssertionError('the test CLI does not reproduce the val at '
+                                 'step 20')
+
+        # the repaired fault: no cv2 or PIL on a PNG path or a 1280x720 frame
+        blocked = {m: sys.modules.get(m) for m in ('cv2', 'PIL')}
+        sys.modules.update(dict.fromkeys(blocked))
+        try:
+            frame = os.path.join(data, 'leftImg8bit', 'val', 'aachen',
+                                 'aachen_000000_000019_leftImg8bit.png')
+            res_png = inference_model(model, frame)
+            small = np.random.default_rng(SEED).integers(
+                0, 256, (720, 1280, 3), dtype=np.uint8)
+            res_720 = inference_model(model, small)
+        finally:
+            for m, mod in blocked.items():
+                if mod is None:
+                    sys.modules.pop(m, None)
+                else:
+                    sys.modules[m] = mod
+        say(f'  inference_model on a PNG path: {res_png["pred_sem_seg"].shape}; '
+            f'on a 1280x720 array: {res_720["pred_sem_seg"].shape} via '
+            f'{res_720["metainfo"]["img_shape"]}')
+        if res_png['pred_sem_seg'].shape != FRAME_HW or \
+                res_720['pred_sem_seg'].shape != (720, 1280) or not (
+                    np.isfinite(res_png['seg_logits']).all()
+                    and np.isfinite(res_720['seg_logits']).all()):
+            raise AssertionError('inference_model on a file or a 720p frame')
+        if not np.array_equal(imageio.imread(frame).shape, FRAME_HW + (3,)):
+            raise AssertionError('the PNG frame did not decode')
+
+        # the loader's host work per sample, by transform, on one thread
+        from lednet_tpu_torch.datasets import build_dataloader
+        from lednet_tpu_torch.datasets.loader import sample_rng
+        train_set = build_dataloader(dict(
+            cfg.train_dataloader, dataset=dict(cfg.train_dataloader.dataset,
+                                               data_root=data))).dataset
+        spent = {}
+        for i in range(TRAIN_BATCH):
+            results, rng = train_set.get_data_info(i), sample_rng(SEED, i)
+            for t in train_set.pipeline.transforms:
+                t0 = time.perf_counter()
+                results = t(results, rng)
+                name = type(t).__name__
+                spent[name] = spent.get(name, 0.0) + time.perf_counter() - t0
+        say(f'  loader host time per train sample (one thread, mean of '
+            f'{TRAIN_BATCH}): {sum(spent.values()) / TRAIN_BATCH * 1e3:.1f} ms; '
+            + ', '.join(f'{k} {v / TRAIN_BATCH * 1e3:.1f}' for k, v in spent.items()))
+
+        # the card's own numbers: the train loop in this process, its idle
+        # share over 10 iterations, then val at 8 x 1024 x 2048
+        cfg.merge_from_dict(dict(
+            {o.split('=')[0]: data for o in options},
+            **{'train_cfg.max_iters': 20, 'train_cfg.val_interval': 0,
+               'default_hooks.checkpoint.interval': 1000,
+               'default_hooks.logger.interval': 5}))
+        runner = Runner(cfg, work_dir=os.path.join(tmp, 'perf'), seed=SEED)
+        logged, window = {}, {}
+        console = runner.logger.console
+
+        def watch(step, max_iters, scalars, **kw):
+            console(step, max_iters, scalars, **kw)
+            logged[step] = (kw['iter_time'], kw['data_time'])
+            if step == 5:            # the device was synchronized at the log
+                window['prof'] = profile(activities=[ProfilerActivity.CUDA])
+                window['prof'].__enter__()
+                window['t0'] = time.perf_counter()
+            elif step == 15:
+                window['wall'] = time.perf_counter() - window['t0']
+                window['prof'].__exit__(None, None, None)
+        runner.logger.console = watch
+        kernels.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        runner.train()          # module forms: no port kernel launches
+        train_peak = torch.cuda.max_memory_allocated()
+        device = {}
+        with device_trace(device):
+            t0 = time.perf_counter()
+            metrics = runner.val()
+            val_wall = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        say(f'  in-process train (20 steps) + val: wrapper launches {launches}, '
+            f'CUDA launches {device}; val {metrics}')
+        # val ran one eager warm-up forward per capture and replayed one
+        # graph per chunk of val_batch_size frames
+        forwards = runner.eval_step().captures + -(-TREE_VAL // VAL_SHAPE[0])
+        if not all(c for n, c in launches.items() if n not in OFF_PATH) or \
+                device != {n: c * forwards for n, c in expected.items()}:
+            raise AssertionError(f'val launched {launches} (device {device}), '
+                                 f'not every kernel of the path {forwards} '
+                                 f'times over')
+        from torch.autograd import DeviceType
+        events = [e for e in window['prof'].key_averages()
+                  if e.device_type == DeviceType.CUDA]
+        busy = sum(getattr(e, 'self_device_time_total', 0.0) or
+                   getattr(e, 'self_cuda_time_total', 0.0) for e in events) / 1e6
+        steady = [logged[k] for k in (10, 15, 20)]
+        it_s = sum(t for t, _ in steady) / 3
+        wait_s = sum(d for _, d in steady) / 3
+        step = runner.eval_step()
+        x8 = torch.randint(0, 256, VAL_SHAPE + (3,), generator=gen,
+                           dtype=torch.uint8).cuda()
+        with torch.inference_mode():
+            val_ms = cuda_ms(lambda: step(x8), reps=5, warmup=2)
+        say(f'  train iteration, bs 6 at 1024x1024 crops, 4 loader threads, '
+            f'steps 6-20: {it_s * 1e3:.3f} ms, of it {wait_s * 1e3:.3f} ms '
+            f'waiting on the loader and {(it_s - wait_s) * 1e3:.3f} ms the '
+            f'rest; on {card}')
+        say(f'  device idle share over train steps 6-15 (torch.profiler): '
+            f'{max(0.0, 1 - busy / window["wall"]):.4f} (busy {busy * 1e3:.1f} '
+            f'of {window["wall"] * 1e3:.1f} ms); on {card}')
+        say(f'  val: eval step at {VAL_SHAPE}: {val_ms:.3f} ms '
+            f'({VAL_SHAPE[0] * 1e3 / val_ms:.2f} images/s); runner.val() on '
+            f'{TREE_VAL} frames {val_wall:.3f} s; on {card}')
+        say(f'  peak memory allocated: train {train_peak / 2**30:.3f} GiB, '
+            f'train + val {peak / 2**30:.3f} GiB; on {card}')
+        del runner, step, x8
+        torch.cuda.empty_cache()
+        return launches, device
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 # ---------------------------------------------------------------- phases
@@ -754,6 +1035,12 @@ def main() -> int:
             f'50 calls): replayed graph {sync_replay:.3f} ms, eager kernel '
             f'path {sync_eager:.3f} ms; host time of the step\'s weights '
             f'check {key_ms:.3f} ms per call')
+
+    with phase('8 entry points'):
+        entry_launches, entry_device = entry_points(model, card, per_forward)
+    for row in rows:
+        row['entry_point_launches'] = entry_launches[row['name']]
+        row['entry_point_device_launches'] = entry_device[row['name']]
 
     say(card)
     say(json.dumps({'kernels': rows}))

@@ -7,9 +7,11 @@ the segmentor itself (an ``nn.Module`` in eval mode on ``device``) with
 caller passes ``device='cpu'``; with no GPU they raise.
 
 The test pipeline (``LoadImageFromFile``/``LoadImageFromNDArray`` -> keep-ratio
-``Resize`` -> ``PackSegInputs``) runs on numpy.  ``cv2`` is imported only to
-read an image file or to resize an image whose size changes; numpy images
-already at the pipeline's scale need neither.
+``Resize`` -> ``PackSegInputs``) runs through the port's transforms on numpy:
+PNG files decode with the port's own codec and resizes run in its host
+library, so neither cv2 nor PIL is imported.  Without a ``dataset_meta`` in
+the checkpoint, ``init_model`` takes the classes and palette of the config's
+test dataset class, as ``lednet_tpu/apis/inference.py:38-48`` does.
 """
 from __future__ import annotations
 
@@ -21,10 +23,11 @@ import torch
 
 from lednet_tpu_torch.config import Config
 from lednet_tpu_torch.convert import flax_to_state_dict, load_npz_variables
+from lednet_tpu_torch.datasets import Compose
 from lednet_tpu_torch.engine.state import EvalStep, float32_math, make_eval_step
 from lednet_tpu_torch.models.layers import init_weights
 from lednet_tpu_torch.models.segmentors.encoder_decoder import postprocess_logits
-from lednet_tpu_torch.registry import MODELS
+from lednet_tpu_torch.registry import DATASETS, MODELS
 
 
 def resolve_device(device=None) -> torch.device:
@@ -68,68 +71,38 @@ def init_model(config: Union[str, Config], checkpoint: Optional[str] = None,
     pre_cfg = cfg.model.get('data_preprocessor') or cfg.get('data_preprocessor')
     model.cfg = cfg
     model.data_preprocessor = MODELS.build(dict(pre_cfg)) if pre_cfg else None
-    model.dataset_meta = meta
+    model.dataset_meta = meta or _config_dataset_meta(cfg)
     return model.to(device).eval()
 
 
+def _config_dataset_meta(cfg) -> Dict:
+    """The classes and palette of the config's test dataset class (without
+    reading its files), or {} when the config names none."""
+    ds_cfg = (cfg.get('test_dataloader') or {}).get('dataset')
+    if not ds_cfg or ds_cfg.get('type') not in DATASETS:
+        return {}
+    ds_cfg = dict(ds_cfg, lazy_init=True, pipeline=[])
+    return DATASETS.build(ds_cfg).metainfo
+
+
 # ---- test pipeline ----------------------------------------------------------
-def _rescale_size(old_size: Tuple[int, int], scale) -> Tuple[int, int]:
-    """mmcv ``rescale_size``: (w, h) target for a keep-ratio resize."""
-    w, h = old_size
-    factor = min(max(scale) / max(h, w), min(scale) / min(h, w))
-    return int(w * factor + 0.5), int(h * factor + 0.5)
-
-
-def _load(item: Dict) -> Dict:
-    if 'img' not in item:
-        import cv2
-        img = cv2.imread(item['img_path'], cv2.IMREAD_COLOR)
-        if img is None:
-            raise FileNotFoundError(item['img_path'])
-        item['img'] = img
-    else:
-        item['img_path'] = None
-    item['img_shape'] = item['ori_shape'] = item['img'].shape[:2]
-    return item
-
-
-def _resize(item: Dict, t: Dict) -> Dict:
-    """The test pipeline's ``Resize(scale=..., keep_ratio=True)``."""
-    if t.get('scale') is None or not t.get('keep_ratio'):
-        raise NotImplementedError(f'test Resize {t} is later work in the port')
-    img = item['img']
-    h, w = img.shape[:2]
-    new_w, new_h = _rescale_size((w, h), t['scale'])
-    if (new_w, new_h) != (w, h):
-        import cv2
-        img = cv2.resize(img, (new_w, new_h), interpolation=cv2.INTER_LINEAR)
-    item.update(img=img, img_shape=(new_h, new_w),
-                scale_factor=(new_w / w, new_h / h))
-    return item
-
-
-_META_KEYS = ('img_path', 'ori_shape', 'img_shape', 'scale_factor')
-
-
 def _prepare_data(imgs, cfg) -> Tuple[List[Dict], bool]:
-    """Run the config's test pipeline minus ``LoadAnnotations``."""
+    """Run the config's test pipeline minus ``LoadAnnotations`` through the
+    port's transforms (its PNG codec and cv2-equivalent resize); arrays
+    enter through ``LoadImageFromNDArray``."""
     is_batch = isinstance(imgs, (list, tuple))
     imgs = list(imgs) if is_batch else [imgs]
     steps = [dict(t) for t in cfg.test_dataloader.dataset.pipeline
              if t['type'] != 'LoadAnnotations']
+    from_array = Compose([dict(type='LoadImageFromNDArray')] + steps[1:])
+    from_file = Compose(steps)
     data = []
     for img in imgs:
-        item = dict(img=img) if isinstance(img, np.ndarray) else dict(img_path=img)
-        for t in steps:
-            if t['type'] in ('LoadImageFromFile', 'LoadImageFromNDArray'):
-                item = _load(item)
-            elif t['type'] == 'Resize':
-                item = _resize(item, t)
-            elif t['type'] != 'PackSegInputs':
-                raise NotImplementedError(f"test transform {t['type']} is later "
-                                          'work in the port')
-        data.append(dict(inputs=np.ascontiguousarray(item['img']),
-                         metainfo={k: item.get(k) for k in _META_KEYS}))
+        if isinstance(img, np.ndarray):
+            item = from_array(dict(img=img, seg_fields=[]))
+        else:
+            item = from_file(dict(img_path=img, seg_fields=[]))
+        data.append(item)
     return data, is_batch
 
 

@@ -187,7 +187,8 @@ class EvalStep:
         """Warm up eagerly, then capture the forward on a side stream.  The
         warm-up builds the kernel library and the operand caches, sets the
         kernels' shared-memory attributes and lets cuDNN pick its
-        algorithms, all outside capture.  A failed capture raises."""
+        algorithms, all outside capture.  The capture is thread-local, so
+        other threads may call CUDA meanwhile.  A failed capture raises."""
         with torch.inference_mode(False):
             static_in = torch.empty(inputs.shape, dtype=inputs.dtype,
                                     device=device)
@@ -199,7 +200,9 @@ class EvalStep:
             self.forward(static_in)
         current.wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
+        # thread_local: CUDA calls of other threads (a data loader's pinned
+        # allocations and event waits) must not invalidate the capture
+        with torch.cuda.graph(graph, capture_error_mode='thread_local'):
             static_out = self.forward(static_in)
         self.captures += 1
         return static_in, graph, static_out

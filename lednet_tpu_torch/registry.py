@@ -72,3 +72,6 @@ class Registry:
 
 
 MODELS = Registry('models')
+DATASETS = Registry('datasets')
+TRANSFORMS = Registry('transforms')
+METRICS = Registry('metrics')

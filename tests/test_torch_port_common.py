@@ -90,12 +90,24 @@ def rel_err(out, ref):
 
 
 # ------------------------------------------------------------------ rules
+PORT_MODULES = ('lednet_tpu_torch', 'lednet_tpu_torch.models', 'lednet_tpu_torch.apis',
+                'lednet_tpu_torch.convert', 'lednet_tpu_torch.engine',
+                'lednet_tpu_torch.engine.runner', 'lednet_tpu_torch.engine.checkpoint',
+                'lednet_tpu_torch.engine.loggers', 'lednet_tpu_torch.ops.kernels',
+                'lednet_tpu_torch.datasets', 'lednet_tpu_torch.datasets.imageio',
+                'lednet_tpu_torch.datasets.synthetic', 'lednet_tpu_torch.native',
+                'lednet_tpu_torch.native.reference', 'lednet_tpu_torch.evaluation')
+PORT_CLIS = ('tools/torch_port_train.py', 'tools/torch_port_test.py')
+
+
 def test_import_pulls_in_no_jax():
-    code = ('import sys; import lednet_tpu_torch, lednet_tpu_torch.models, '
-            'lednet_tpu_torch.apis, lednet_tpu_torch.convert, '
-            'lednet_tpu_torch.engine, lednet_tpu_torch.ops.kernels; '
+    """The port's modules and its train/test CLIs import no JAX, flax or
+    JAX-package module, and no cv2 or PIL."""
+    code = ('import runpy, sys; '
+            f'[__import__(m) for m in {PORT_MODULES!r}]; '
+            f'[runpy.run_path(p) for p in {PORT_CLIS!r}]; '
             'bad = [m for m in sys.modules if m.split(".")[0] in '
-            '("jax", "jaxlib", "flax", "lednet_tpu")]; print(bad)')
+            '("jax", "jaxlib", "flax", "lednet_tpu", "cv2", "PIL")]; print(bad)')
     out = subprocess.run([sys.executable, '-c', code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
