@@ -92,11 +92,36 @@ printing one flushed line with its seconds:
    train and of train + val; launch counts set to 0 before that train +
    val run and read after (A-D must launch, in val).
 
+9. branch: LED-Net on Apple Branch (``configs/LED_Net/lednet_80k_branch-
+   512x1024.py``, 2 classes) on a tree of 8 train and 4 val seeded
+   1920x1080 JPEG frames and one 1080x1440 portrait frame stored on its
+   side with EXIF orientation 6 (in both lists), written by the port's
+   JPEG encoder into a temporary directory: JPEG decode time per frame (the
+   portrait must read upright) and the train pipeline's host time per
+   sample by transform; kernels A-D held to their plain versions at both
+   val shapes (8 x 512 x 1024, 8 x 768 x 512) and at all 12 test-time view
+   shapes (1 x 640 x 1024 to 1 x 1920 x 3456), each with a device trace of
+   one forward; ``tools/torch_port_train.py`` on the branch config (its
+   batch of 2, 2 loader threads, 20 steps, val and checkpoints every 10):
+   finite losses, two val results; ``tools/torch_port_test.py`` on
+   ``iter_20.pth`` equal to the val at step 20, and with ``--tta``, finite
+   metrics; then a ``Runner`` in this process: train iteration time and
+   loader wait (steps 6-20), ``Runner.test`` without and with TTA under a
+   device trace (launch counts set to 0 before, read after: A-D must
+   launch, on the device once per forward the graphs ran), both again
+   timed (no graph may be captured again), one frame's 12 views through
+   ``Runner.predict_tta`` replayed against the eager kernel path (mean
+   probabilities within TOL_KERNEL, argmax agreement 1, the prediction
+   equal) and the time of each, graphs captured and peak memory.
+
 It prints the card line and a ``{"kernels": [...]}`` line (``launches``:
 the wrappers' count in phase 4; ``device_launches``: the CUDA launches the
 device trace saw there; ``entry_point_launches`` and
-``entry_point_device_launches``: the same of phase 8's train + val run),
-and last ``{"ok": true, "device": {...}}``.
+``entry_point_device_launches``: the same of phase 8's train + val run;
+``branch_launches``, ``branch_device_launches``: the same of phase 9's
+test + TTA run; ``branch_max_abs_err``: the kernel's largest error against
+its plain version over phase 9's shapes), and last ``{"ok": true,
+"device": {...}}``.
 Without CUDA, or without the package beside it, it exits non-zero and
 prints no result.
 """
@@ -129,6 +154,12 @@ TRAIN_CHECK_SEEDS = (2, 3, 4, 5)   # the card's step against the CPU's
 TREE_TRAIN, TREE_VAL = 12, 4
 FRAME_HW = (1024, 2048)
 VAL_SHAPE = (8,) + FRAME_HW         # val_batch_size x a Cityscapes frame
+# phase 9: the Apple Branch config on a fabricated JPEG tree
+BRANCH_CONFIG = 'configs/LED_Net/lednet_80k_branch-512x1024.py'
+BRANCH_TRAIN, BRANCH_VAL = 8, 4
+BRANCH_FRAME_HW = (1080, 1920)          # a 1920x1080 photo
+BRANCH_PORTRAIT_HW = (1440, 1080)       # upright; stored on its side + EXIF 6
+BRANCH_TTA_RATIOS = (0.5, 0.75, 1.0, 1.25, 1.5, 1.75)   # apple_branch.py
 CE_LOSSES = [dict(type='CrossEntropyLoss', loss_weight=1.0),
              dict(type='CrossEntropyLoss', loss_weight=0.4)]
 MIN_ARGMAX_AGREEMENT = 0.999
@@ -344,9 +375,10 @@ def bounds_ms(name, args, kw):
     return max(tb, to), 'bytes' if tb >= to else 'operations', max(tb, tf32)
 
 
-def check_against_plain(name, op, args, kw, tol, errs):
+def check_against_plain(name, op, args, kw, tol, errs, log=True):
     """Run op through its kernel and its plain version on the same inputs
-    and hold every output to max|kernel - plain| <= tol * max|plain|."""
+    and hold every output to max|kernel - plain| <= tol * max|plain|
+    (a line per output when ``log``; ``errs`` gets each max abs error)."""
     import torch
     with torch.inference_mode():
         got = outputs(op(*args, **dict(kw, impl='cuda')))
@@ -359,11 +391,13 @@ def check_against_plain(name, op, args, kw, tol, errs):
             raise AssertionError(f'{name} {shape_of(args)}: {g.shape} '
                                  f'{g.dtype} vs {r.shape} {r.dtype}')
         e_rel, e_abs = rel(g, r), (g.double() - r.double()).abs().max().item()
-        say(f'  {name} {shape_of(args)} {args[0].dtype}{extra}: max_abs '
-            f'{e_abs:.3e} rel {e_rel:.3e} (tol {tol:g})')
+        if log:
+            say(f'  {name} {shape_of(args)} {args[0].dtype}{extra}: max_abs '
+                f'{e_abs:.3e} rel {e_rel:.3e} (tol {tol:g})')
         if not e_rel <= tol:
-            raise AssertionError(f'{name} {shape_of(args)} disagrees with '
-                                 f'its plain version')
+            raise AssertionError(f'{name} {shape_of(args)}{extra} disagrees with '
+                                 f'its plain version: max_abs {e_abs:.3e} rel '
+                                 f'{e_rel:.3e} (tol {tol:g})')
         errs.append(e_abs)
 
 
@@ -432,6 +466,20 @@ def hold_train(name, card, cpu, bounds):
         ', '.join(bounds))
     if not (dl <= TOL_TRAIN_LOSS and all(worst[b] <= 1.0 for b in bounds)):
         raise AssertionError(f'{name}: card and CPU disagree')
+
+
+def randomize_norms(model, gen):
+    """Non-trivial BatchNorm affine parameters and running stats."""
+    import torch
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.weight.copy_(1 + 0.1 * torch.randn(m.weight.shape, generator=gen))
+                m.bias.copy_(0.1 * torch.randn(m.bias.shape, generator=gen))
+                m.running_mean.copy_(0.1 * torch.randn(m.running_mean.shape,
+                                                       generator=gen))
+                m.running_var.copy_(0.5 + torch.rand(m.running_var.shape,
+                                                     generator=gen))
 
 
 def check_logits(name, out, ref):
@@ -695,6 +743,266 @@ def entry_points(model, card, expected):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def branch_eval_shapes(cfg):
+    """The eval step's input shapes on the branch path, padded to the
+    bucket: val (``val_batch_size`` frames after the test ``Resize``) and
+    each test-time view (one frame at each ratio), per frame size."""
+    from lednet_tpu_torch.datasets.transforms.transforms import rescale_size
+    bucket = int(cfg.get('eval_pad_multiple', 128))
+    vb = int(cfg.get('val_batch_size', 8))
+    scale = cfg.test_dataloader.dataset.pipeline[1]['scale']
+    ratios = [t['scale_factor'] for t in cfg.tta_pipeline[1]['transforms'][0]]
+    if tuple(ratios) != BRANCH_TTA_RATIOS:
+        raise AssertionError(f'the config views at {ratios}')
+
+    def padded(size_wh):
+        w, h = size_wh
+        return h + (-h) % bucket, w + (-w) % bucket
+    shapes = {}
+    for h, w in (BRANCH_FRAME_HW, BRANCH_PORTRAIT_HW):
+        shapes[f'val {w}x{h}'] = (vb,) + padded(rescale_size((w, h), scale))
+        for r in ratios:
+            shapes[f'tta {w}x{h} x{r}'] = (1,) + padded(
+                rescale_size((w, h), (int(w * r), int(h * r))))
+    return shapes
+
+
+def branch_path(card, expected):
+    """Phase 9: the Apple Branch config through the train and test entry
+    points on a fabricated JPEG tree (``expected``: phase 3's CUDA launches
+    of one forward); returns the kernels' wrapper launches, device launches
+    and largest errors against their plain versions on this path."""
+    import shutil
+    import tempfile
+    import torch
+    from lednet_tpu_torch.apis import init_model
+    from lednet_tpu_torch.config import Config
+    from lednet_tpu_torch.datasets import build_dataloader, imageio
+    from lednet_tpu_torch.datasets.loader import sample_rng
+    from lednet_tpu_torch.datasets.synthetic import make_branch_tree
+    from lednet_tpu_torch.engine.runner import Runner
+    from lednet_tpu_torch.engine.state import float32_math
+    from lednet_tpu_torch.ops import kernels
+
+    tmp = tempfile.mkdtemp(prefix='lednet_branch_')
+    try:
+        t0 = time.perf_counter()
+        data = make_branch_tree(os.path.join(tmp, 'branch'), BRANCH_TRAIN,
+                                BRANCH_VAL, size_hw=BRANCH_FRAME_HW,
+                                portrait_hw=BRANCH_PORTRAIT_HW, seed=SEED)
+        (h, w), (ph, pw) = BRANCH_FRAME_HW, BRANCH_PORTRAIT_HW
+        say(f'  fabricated {BRANCH_TRAIN} train and {BRANCH_VAL} val JPEG '
+            f'frames at {w}x{h} and one {pw}x{ph} portrait frame (stored '
+            f'{ph}x{pw}, EXIF orientation 6, in both lists) with the port\'s '
+            f'writer in {time.perf_counter() - t0:.2f} s')
+
+        # JPEG decode per frame, then the train pipeline's host time per
+        # sample by transform, on one thread
+        jpegs = sorted(os.listdir(os.path.join(data, 'JPEGImages')))
+        t0 = time.perf_counter()
+        decoded = {n: imageio.imread(os.path.join(data, 'JPEGImages', n)).shape
+                   for n in jpegs}
+        decode_ms = (time.perf_counter() - t0) / len(jpegs) * 1e3
+        if decoded.pop('portrait_0000.jpg') != BRANCH_PORTRAIT_HW + (3,) or \
+                set(decoded.values()) != {BRANCH_FRAME_HW + (3,)}:
+            raise AssertionError(f'decoded shapes {decoded}')
+        say(f'  JPEG decode (imageio.imread, color): {decode_ms:.2f} ms per '
+            f'frame, mean of {len(jpegs)}; the portrait frame reads upright; '
+            f'on the host of {card}')
+        cfg = Config.fromfile(BRANCH_CONFIG)
+        options = {f'{k}.dataset.{key}': value
+                   for k in ('train_dataloader', 'val_dataloader', 'test_dataloader')
+                   for key, value in (('data_root', data), ('img_suffix', '.jpg'))}
+        cfg.merge_from_dict(options)
+        train_set = build_dataloader(dict(cfg.train_dataloader)).dataset
+        spent = {}
+        for i in range(BRANCH_TRAIN):
+            results, rng = train_set.get_data_info(i), sample_rng(SEED, i)
+            for t in train_set.pipeline.transforms:
+                t0 = time.perf_counter()
+                results = t(results, rng)
+                name = type(t).__name__
+                spent[name] = spent.get(name, 0.0) + time.perf_counter() - t0
+        say(f'  loader host time per train sample (one thread, mean of '
+            f'{BRANCH_TRAIN}): {sum(spent.values()) / BRANCH_TRAIN * 1e3:.1f} ms; '
+            + ', '.join(f'{k} {v / BRANCH_TRAIN * 1e3:.1f}' for k, v in spent.items())
+            + f'; on the host of {card}')
+
+        # kernels A-D at every eval shape of the path, against their plain
+        # versions, with a device trace of one forward at each
+        kmodel = init_model(BRANCH_CONFIG, device='cuda',
+                            generator=torch.Generator().manual_seed(SEED + 9))
+        gen = torch.Generator().manual_seed(SEED + 9)
+        randomize_norms(kmodel, gen)
+        errs = {}
+        for label, shape in branch_eval_shapes(cfg).items():
+            x8 = torch.randint(0, 256, shape + (3,), generator=gen,
+                               dtype=torch.uint8).cuda()
+            calls, per_forward, shape_errs = [], {}, {}
+            with torch.inference_mode():
+                x, _, _ = kmodel.data_preprocessor(x8, impl='cuda')
+                kmodel.predict(x, 'cuda')          # warm-up at the new shape
+                with recording(calls), device_trace(per_forward):
+                    x, _, _ = kmodel.data_preprocessor(x8, impl='cuda')
+                    kmodel.predict(x, 'cuda')
+            if per_forward != expected:
+                raise AssertionError(f'{label} {shape}: the device ran '
+                                     f'{per_forward}, not {expected}')
+            for name, op, args, kw in calls:
+                rels = shape_errs.setdefault(name, [])
+                check_against_plain(name, op, args, kw,
+                                    0.0 if name == 'normalize_image' else TOL_KERNEL,
+                                    rels, log=False)
+                errs.setdefault(name, []).extend(rels)
+            missing = [n for n in KERNEL_INFO if n not in shape_errs and n not in OFF_PATH]
+            if missing:
+                raise AssertionError(f'the forward at {shape} called no {missing}')
+            say(f'  {label}: {shape}: ' + ', '.join(
+                f'{n} x{len(e)} max_abs {max(e):.2e}' for n, e in shape_errs.items())
+                + f' (held: normalize exact, others {TOL_KERNEL:g} x max|plain|)')
+            del calls, x, x8
+        del kmodel
+        torch.cuda.empty_cache()
+
+        # the CLIs: train 20 steps, test on iter_20.pth, test --tta
+        opts = [f'{k}={v}' for k, v in options.items()]
+        work = os.path.join(tmp, 'work')
+        t0 = time.perf_counter()
+        iters, vals = train_log(run_cli(
+            ['tools/torch_port_train.py', BRANCH_CONFIG, '--work-dir', work,
+             '--cfg-options', *opts, 'train_cfg.max_iters=20',
+             'train_cfg.val_interval=10', 'default_hooks.checkpoint.interval=10',
+             'default_hooks.logger.interval=5']))
+        say(f'  train CLI, 20 steps: {time.perf_counter() - t0:.2f} s; loss at '
+            + ', '.join(f'{k}: {v[0]:.4f}' for k, v in iters.items())
+            + f'; val at {sorted(vals)}: {vals.get(10)}, {vals.get(20)}')
+        files = sorted(os.listdir(work))
+        if sorted(iters) != [5, 10, 15, 20] or not all(
+                np.isfinite(v[0]) for v in iters.values()) or \
+                sorted(vals) != [10, 20] or not {
+                    'iter_10.pth', 'iter_20.pth', 'last_checkpoint'} <= set(files):
+            raise AssertionError(f'train log {iters}, val at {sorted(vals)}, '
+                                 f'files {files}')
+        test = ['tools/torch_port_test.py', BRANCH_CONFIG,
+                os.path.join(work, 'iter_20.pth'), '--work-dir',
+                os.path.join(tmp, 'test'), '--cfg-options', *opts]
+        t0 = time.perf_counter()
+        tested = json.loads(run_cli(test)[-1])
+        say(f'  test CLI on iter_20.pth: {time.perf_counter() - t0:.2f} s; '
+            f'{tested} (val at step 20: {vals[20]})')
+        if tested != vals[20]:
+            raise AssertionError('the test CLI does not reproduce the val at '
+                                 'step 20')
+        t0 = time.perf_counter()
+        tta_cli = json.loads(run_cli(test + ['--tta'])[-1])
+        say(f'  test CLI --tta on iter_20.pth: {time.perf_counter() - t0:.2f} s; '
+            f'{tta_cli}')
+        if set(tta_cli) != set(tested) or not all(
+                np.isfinite(v) for v in tta_cli.values()):
+            raise AssertionError(f'--tta metrics {tta_cli}')
+
+        # the card's own numbers from a Runner in this process
+        cfg.merge_from_dict({'train_cfg.max_iters': 20, 'train_cfg.val_interval': 0,
+                             'default_hooks.checkpoint.interval': 1000,
+                             'default_hooks.logger.interval': 5})
+        runner = Runner(cfg, work_dir=os.path.join(tmp, 'perf'), seed=SEED)
+        logged = {}
+        console = runner.logger.console
+
+        def watch(step, max_iters, scalars, **kw):
+            console(step, max_iters, scalars, **kw)
+            logged[step] = (kw['iter_time'], kw['data_time'])
+        runner.logger.console = watch
+        torch.cuda.reset_peak_memory_stats()
+        runner.train()
+        train_peak = torch.cuda.max_memory_allocated()
+        steady = [logged[k] for k in (10, 15, 20)]
+        it_s = sum(t for t, _ in steady) / 3
+        wait_s = sum(d for _, d in steady) / 3
+        say(f'  train iteration, bs 2 of 512x512 crops padded to 512x1024, '
+            f'2 loader threads, steps 6-20: {it_s * 1e3:.3f} ms, of it '
+            f'{wait_s * 1e3:.3f} ms waiting on the loader; on {card}')
+
+        # test and test --tta, launches counted over both (the main path of
+        # this phase), then both again, timed
+        step = runner.eval_step()
+        plain_pipeline = runner.cfg['test_dataloader']['dataset']['pipeline']
+        pipelines = (('test', plain_pipeline), ('test --tta', cfg['tta_pipeline']))
+
+        def test_run(which):
+            runner.cfg['test_dataloader']['dataset']['pipeline'] = dict(pipelines)[which]
+            c0, t0 = step.captures, time.perf_counter()
+            metrics = runner.test()
+            torch.cuda.synchronize()
+            return metrics, time.perf_counter() - t0, step.captures - c0
+        kernels.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        device, counted = {}, {}
+        with device_trace(device):
+            for which, _ in pipelines:
+                counted[which] = test_run(which)
+        launches = kernels.launch_counts()
+        test_peak = torch.cuda.max_memory_allocated()
+        n_frames = BRANCH_VAL + 1
+        calls = 2 + n_frames * 2 * len(BRANCH_TTA_RATIOS)   # val chunks + views
+        forwards = calls + sum(c for _, _, c in counted.values())
+        say(f'  test + test --tta (traced): wrapper launches {launches}, CUDA '
+            f'launches {device}; graphs captured: test {counted["test"][2]}, '
+            f'--tta {counted["test --tta"][2]}; metrics {counted["test"][0]}, '
+            f'--tta {counted["test --tta"][0]}')
+        if not all(c for n, c in launches.items() if n not in OFF_PATH) or \
+                device != {n: c * forwards for n, c in expected.items()}:
+            raise AssertionError(f'test + --tta launched {launches} (device '
+                                 f'{device}), not every kernel of the path '
+                                 f'{forwards} times over')
+        timed = {which: test_run(which) for which, _ in pipelines}
+        for which, (metrics, wall, captures) in timed.items():
+            if metrics != counted[which][0] or captures:
+                raise AssertionError(f'{which} gave {counted[which][0]}, then '
+                                     f'{metrics} and captured {captures} graphs '
+                                     f'again (the step keeps {len(step._graphs)})')
+            say(f'  Runner.test ({which}) on {n_frames} frames: {wall:.3f} s '
+                f'({wall / n_frames * 1e3:.1f} ms per frame), {captures} graphs '
+                f'captured; on {card}')
+
+        # one frame's views through Runner.predict_tta: the replayed graphs
+        # against the eager kernel path, then the time per frame of each
+        runner.cfg['test_dataloader']['dataset']['pipeline'] = cfg['tta_pipeline']
+        views = None
+        for batch in build_dataloader(dict(runner.cfg['test_dataloader'])):
+            views = batch['tta_views']
+            break
+
+        def eager(x):
+            with float32_math():
+                return step.forward(x)
+        runner.model.eval()
+        with torch.inference_mode():
+            probs, pred = runner.predict_tta(views, step)
+            eager_probs, eager_pred = runner.predict_tta(views, eager)
+            check_logits(f'{len(views)} views merged, replay vs eager: mean '
+                         f'probabilities', probs, eager_probs)
+            if not torch.equal(pred, eager_pred):
+                raise AssertionError('the merged prediction differs from the '
+                                     'eager kernel path')
+            replay_ms = synced_ms(lambda: runner.predict_tta(views, step),
+                                  reps=3, warmup=1)
+            eager_ms = synced_ms(lambda: runner.predict_tta(views, eager),
+                                 reps=3, warmup=1)
+        say(f'  one test-time-augmented {w}x{h} frame (12 views, host clock): '
+            f'replayed graphs {replay_ms:.1f} ms, eager kernel path '
+            f'{eager_ms:.1f} ms; on {card}')
+        say(f'  peak memory allocated: train {train_peak / 2**30:.3f} GiB, '
+            f'test + test --tta {test_peak / 2**30:.3f} GiB (reserved now '
+            f'{torch.cuda.memory_reserved() / 2**30:.3f} GiB, graphs held '
+            f'{len(step._graphs)}); on {card}')
+        del runner, step
+        torch.cuda.empty_cache()
+        return launches, device, {n: max(e) for n, e in errs.items()}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 # ---------------------------------------------------------------- phases
 def main() -> int:
     import torch
@@ -738,15 +1046,7 @@ def main() -> int:
     gen = torch.Generator().manual_seed(SEED)
     with phase('3 kernels'):
         model = init_model(CONFIG, device='cuda', generator=gen)
-        with torch.no_grad():        # non-trivial BatchNorm and PReLU state
-            for m in model.modules():
-                if isinstance(m, torch.nn.BatchNorm2d):
-                    m.weight.copy_(1 + 0.1 * torch.randn(m.weight.shape, generator=gen))
-                    m.bias.copy_(0.1 * torch.randn(m.bias.shape, generator=gen))
-                    m.running_mean.copy_(0.1 * torch.randn(m.running_mean.shape,
-                                                           generator=gen))
-                    m.running_var.copy_(0.5 + torch.rand(m.running_var.shape,
-                                                         generator=gen))
+        randomize_norms(model, gen)
         rng = np.random.default_rng(SEED)
         imgs = [rng.integers(0, 256, (SIZE, SIZE, 3), dtype=np.uint8)
                 for _ in range(N_IMAGES)]
@@ -1038,9 +1338,14 @@ def main() -> int:
 
     with phase('8 entry points'):
         entry_launches, entry_device = entry_points(model, card, per_forward)
+    with phase('9 branch'):
+        branch_launches, branch_device, branch_errs = branch_path(card, per_forward)
     for row in rows:
         row['entry_point_launches'] = entry_launches[row['name']]
         row['entry_point_device_launches'] = entry_device[row['name']]
+        row['branch_launches'] = branch_launches[row['name']]
+        row['branch_device_launches'] = branch_device[row['name']]
+        row['branch_max_abs_err'] = branch_errs.get(row['name'])
 
     say(card)
     say(json.dumps({'kernels': rows}))

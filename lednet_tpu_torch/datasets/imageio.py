@@ -1,20 +1,30 @@
-"""Image files without cv2 or PIL: a PNG codec on ``zlib``.
+"""Image files without cv2 or PIL: PNG on ``zlib``, JPEG in the host library.
 
 The port's stand-in for ``cv2.imread``/``cv2.imwrite`` and ``PIL.Image.open``
-in the data pipeline (the GPU machine has neither library).  It reads
-8-bit PNGs of every color type (gray, gray + alpha, RGB, RGBA, palette) and
-all five row filters, the unfilter step in the host library
-(:func:`lednet_tpu_torch.native.png_unfilter`), and writes 8-bit gray, RGB,
-RGBA and palette PNGs.  Other formats (JPEG) go to cv2, imported only then;
-where it is missing they raise.
+in the data pipeline (the GPU machine has neither library).
+
+- PNG: 8 bits per sample, every color type (gray, gray + alpha, RGB, RGBA,
+  palette) and all five row filters, the unfilter step in the host library
+  (:func:`lednet_tpu_torch.native.png_unfilter`); written as 8-bit gray,
+  RGB, RGBA or palette.
+- JPEG: baseline and extended sequential Huffman files, 8-bit, gray or
+  3-component, decoded as libjpeg-turbo decodes them by default, which is
+  what cv2 and PIL give (:func:`lednet_tpu_torch.native.jpeg_decode`); the
+  EXIF orientation is applied as ``cv2.imread`` applies it.  Progressive,
+  arithmetic-coded, lossless, 12-bit and CMYK files raise ``ValueError``.
+  Written as baseline 4:2:0 or 4:4:4 (:func:`lednet_tpu_torch.native.jpeg_encode`).
+
+Other formats raise ``ValueError``; nothing is handed to another decoder.
 
 - :func:`imread` follows ``cv2.imread``: ``'color'`` gives BGR (H, W, 3)
   (gray replicated, alpha dropped, palettes expanded), ``'unchanged'`` gray
   as (H, W) and the rest as BGR or BGRA, ``'grayscale'`` a gray file as
-  (H, W).
+  (H, W) and a YCbCr JPEG as its luma plane.  ``'color'`` and
+  ``'grayscale'`` turn a JPEG by its EXIF orientation, ``'unchanged'``
+  does not.
 - :func:`imread_pil` follows ``np.array(PIL.Image.open(path))``: channels
   in RGB(A) order and a palette image as its palette indices, which is how
-  ``LoadAnnotations`` reads label maps.
+  ``LoadAnnotations`` reads label maps; no EXIF orientation.
 """
 from __future__ import annotations
 
@@ -27,6 +37,7 @@ import numpy as np
 from lednet_tpu_torch import native
 
 PNG_SIGNATURE = b'\x89PNG\r\n\x1a\n'
+JPEG_SOI = b'\xff\xd8'
 # color type -> samples per pixel
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
 
@@ -147,18 +158,31 @@ def _read_bytes(path: str) -> bytes:
         return f.read()
 
 
-def _cv2_imread(path: str, flag: str):
+def exif_orient(img: np.ndarray, orientation: int) -> np.ndarray:
+    """Turn an image stored with EXIF ``orientation`` upright, as cv2's
+    ``ExifTransform`` does (2: mirror, 3: 180 degrees, 4: flip, 5:
+    transpose, 6: 90 degrees clockwise, 7: transverse, 8: 90 degrees
+    counter-clockwise; any other value: as stored)."""
+    if orientation in (5, 6, 7, 8):
+        img = np.swapaxes(img, 0, 1)
+    flip = {2: (1,), 3: (0, 1), 4: (0,), 6: (1,), 7: (0, 1), 8: (0,)}
+    axes = flip.get(orientation)
+    if axes:
+        img = np.flip(img, axes)
+    return np.ascontiguousarray(img)
+
+
+def _imread_jpeg(path: str, data: bytes, flag: str) -> np.ndarray:
     try:
-        import cv2
-    except ImportError as e:
-        raise RuntimeError(f'{path}: the port reads PNG files itself; other '
-                           'formats need cv2, which is not installed') from e
-    img = cv2.imread(path, {'color': cv2.IMREAD_COLOR,
-                            'grayscale': cv2.IMREAD_GRAYSCALE,
-                            'unchanged': cv2.IMREAD_UNCHANGED}[flag])
-    if img is None:
-        raise FileNotFoundError(path)
-    return img
+        head = native.jpeg_header(data)
+        gray = flag == 'grayscale' or (flag == 'unchanged' and
+                                       head['components'] == 1)
+        img = native.jpeg_decode(data, gray=gray)
+    except ValueError as e:
+        raise ValueError(f'{path}: {e}') from None
+    if flag == 'unchanged':
+        return img
+    return exif_orient(img, head['orientation'])
 
 
 def imread(path: str, flag: str = 'color') -> np.ndarray:
@@ -168,8 +192,10 @@ def imread(path: str, flag: str = 'color') -> np.ndarray:
     if flag not in ('color', 'grayscale', 'unchanged'):
         raise ValueError(f'unknown imread flag {flag!r}')
     data = _read_bytes(path)
+    if data[:2] == JPEG_SOI:
+        return _imread_jpeg(path, data, flag)
     if data[:8] != PNG_SIGNATURE:
-        return _cv2_imread(path, flag)
+        raise ValueError(f'{path}: neither a PNG nor a JPEG file')
     pixels, palette = decode_png(data)
     if palette is not None:
         pixels = palette[pixels]                         # RGB
@@ -195,27 +221,31 @@ def imread_pil(path: str) -> np.ndarray:
     """``np.array(PIL.Image.open(path))``: RGB(A) order, palette images as
     their indices, gray as (H, W)."""
     data = _read_bytes(path)
+    if data[:2] == JPEG_SOI:
+        img = _imread_jpeg(path, data, 'unchanged')
+        return np.ascontiguousarray(img[..., ::-1]) if img.ndim == 3 else img
     if data[:8] != PNG_SIGNATURE:
-        try:
-            from PIL import Image
-        except ImportError as e:
-            raise RuntimeError(f'{path}: the port reads PNG files itself; '
-                               'other formats need PIL, which is not '
-                               'installed') from e
-        with Image.open(path) as im:
-            return np.array(im)
+        raise ValueError(f'{path}: neither a PNG nor a JPEG file')
     return decode_png(data)[0]
 
 
 def imwrite(path: str, img: np.ndarray, filter_type: int = 1,
-            level: int = 6) -> None:
-    """``cv2.imwrite`` to a PNG: (H, W) gray, (H, W, 3) BGR or (H, W, 4)
-    BGRA uint8."""
-    if not str(path).lower().endswith('.png'):
-        raise NotImplementedError(f'{path}: the port writes PNG files only')
-    if img.ndim == 3 and img.shape[2] == 3:
-        img = img[..., ::-1]
-    elif img.ndim == 3 and img.shape[2] == 4:
-        img = img[..., [2, 1, 0, 3]]
+            level: int = 6, quality: int = 95, subsampling: str = '420',
+            orientation: int = 0) -> None:
+    """``cv2.imwrite``: (H, W) gray, (H, W, 3) BGR or (H, W, 4) BGRA uint8
+    to a PNG (``filter_type``, zlib ``level``), or gray or BGR to a JPEG by
+    the suffix ``.jpg``/``.jpeg`` (``quality`` as cv2's, ``subsampling``
+    '420' or '444', an EXIF ``orientation`` tag when 1-8)."""
+    suffix = str(path).lower().rsplit('.', 1)[-1]
+    if suffix in ('jpg', 'jpeg'):
+        data = native.jpeg_encode(img, quality, subsampling, orientation)
+    elif suffix == 'png':
+        if img.ndim == 3 and img.shape[2] == 3:
+            img = img[..., ::-1]
+        elif img.ndim == 3 and img.shape[2] == 4:
+            img = img[..., [2, 1, 0, 3]]
+        data = encode_png(img, filter_type=filter_type, level=level)
+    else:
+        raise ValueError(f'{path}: the port writes PNG and JPEG files')
     with open(path, 'wb') as f:
-        f.write(encode_png(img, filter_type=filter_type, level=level))
+        f.write(data)

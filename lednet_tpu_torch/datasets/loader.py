@@ -94,10 +94,20 @@ def _pad_stack(arrs: List[np.ndarray], pad_val: int,
 
 def collate(items: List[Dict], alloc: Optional[Allocator] = None) -> Dict[str, Any]:
     """Stack samples (images padded with 0, label maps with 255) and keep
-    their metas as a list.  ``alloc`` supplies the arrays to stack into."""
+    their metas as a list.  ``alloc`` supplies the arrays to stack into.
+
+    A test-time-augmented sample (``tta_views``) makes a batch of its own
+    (batch size 1): its views with their own inputs and metas, the first
+    view's meta and its (1, H, W) labels at the original size."""
     if 'tta_views' in items[0]:
-        raise NotImplementedError('TTA batches are later work in the port '
-                                  '(ROADMAP Queue 1 item 6)')
+        if len(items) != 1:
+            raise ValueError(f'test-time augmentation takes batch size 1, '
+                             f'got {len(items)}')
+        views = items[0]['tta_views']
+        return dict(tta_views=views,
+                    metainfo=[views[0]['metainfo']] if views else [{}],
+                    gt_seg_map=(np.stack([views[0]['gt_seg_map']])
+                                if views and 'gt_seg_map' in views[0] else None))
     batch: Dict[str, Any] = {}
     for key, pad_val in (('inputs', 0), ('gt_seg_map', 255), ('gt_edge_map', 255)):
         if key not in items[0]:

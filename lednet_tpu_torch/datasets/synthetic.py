@@ -1,22 +1,35 @@
-"""A fabricated Cityscapes-layout tree, for runs without the dataset.
+"""Fabricated dataset trees, for runs without the datasets.
 
+:func:`make_cityscapes_tree`:
 ``leftImg8bit/{train,val}/<city>/<name>_leftImg8bit.png`` and
 ``gtFine/{train,val}/<city>/<name>_gtFine_labelTrainIds.png``, written with
 the port's PNG encoder.  Each label map is a grid of rectangular blocks of
 random trainIds (0-18) with about 2% of pixels at 255 (ignored); each image
 is its labels' Cityscapes palette colors plus Gaussian noise, so a model can
-learn the map from the image.  Everything follows from ``seed``.
+learn the map from the image.
+
+:func:`make_branch_tree`: the VOC layout of the Apple Branch config
+(``configs/_base_/datasets/apple_branch.py``): ``JPEGImages/<name>.jpg``
+photos written with the port's JPEG encoder, ``SegmentationClassPNG/
+<name>.png`` palette label maps (0 background, 1 branch) and the
+``train.txt`` / ``val.txt`` name lists.  Each frame is a smooth, noisy
+green-grey background crossed by thin, branching brown strokes (the branch
+class: sparse and a few pixels wide); an optional portrait frame is stored
+turned on its side with an EXIF orientation tag, as phone photos are.
+
+Everything follows from ``seed``.
 """
 from __future__ import annotations
 
 import os
 import os.path as osp
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
 from lednet_tpu_torch.datasets import imageio
-from lednet_tpu_torch.datasets.metainfo import CITYSCAPES_PALETTE
+from lednet_tpu_torch.datasets.metainfo import (APPLE_BRANCH_PALETTE,
+                                                CITYSCAPES_PALETTE)
 
 
 def fake_frame(rng: np.random.Generator, size_hw: Tuple[int, int],
@@ -54,4 +67,92 @@ def make_cityscapes_tree(root: str, n_train: int = 12, n_val: int = 4,
                 os.makedirs(d, exist_ok=True)
                 imageio.imwrite(osp.join(d, f'{name}_{suffix}.png'), arr,
                                 level=level)
+    return root
+
+
+def _stroke(labels: np.ndarray, p0, p1, radius: float) -> None:
+    """Mark the pixels within ``radius`` of the segment p0-p1 ((y, x))."""
+    h, w = labels.shape
+    r = int(np.ceil(radius))
+    y0, y1 = int(max(min(p0[0], p1[0]) - r, 0)), int(min(max(p0[0], p1[0]) + r + 1, h))
+    x0, x1 = int(max(min(p0[1], p1[1]) - r, 0)), int(min(max(p0[1], p1[1]) + r + 1, w))
+    if y0 >= y1 or x0 >= x1:
+        return
+    yy, xx = np.mgrid[y0:y1, x0:x1].astype(np.float32)
+    d = np.asarray(p1, np.float32) - np.asarray(p0, np.float32)
+    t = ((yy - p0[0]) * d[0] + (xx - p0[1]) * d[1]) / max(float(d @ d), 1e-6)
+    t = np.clip(t, 0.0, 1.0)
+    dist2 = (yy - p0[0] - t * d[0]) ** 2 + (xx - p0[1] - t * d[1]) ** 2
+    labels[y0:y1, x0:x1][dist2 <= radius * radius] = 1
+
+
+def branch_frame(rng: np.random.Generator, size_hw: Tuple[int, int]
+                 ) -> Tuple[np.ndarray, np.ndarray]:
+    """(BGR uint8 image, uint8 labels: 0 background, 1 branch) of
+    ``size_hw``: three strokes from the bottom edge, each splitting in two,
+    four times, thinner and shorter at every split, on a smooth background
+    with Gaussian noise of std 12."""
+    trunks, depth, noise = 3, 4, 12.0
+    h, w = size_hw
+    labels = np.zeros((h, w), np.uint8)
+    scale = min(h, w)
+    stack = [((h - 1.0, rng.uniform(0.1, 0.9) * w), -np.pi / 2 +
+              rng.uniform(-0.4, 0.4), 0.35 * scale, max(scale / 90.0, 1.5), 0)
+             for _ in range(trunks)]
+    while stack:
+        start, angle, length, radius, level = stack.pop()
+        end = (start[0] + length * np.sin(angle), start[1] + length * np.cos(angle))
+        _stroke(labels, start, end, radius)
+        if level < depth:
+            for side in (-1.0, 1.0):
+                stack.append((end, angle + side * rng.uniform(0.2, 0.7),
+                              length * rng.uniform(0.5, 0.75),
+                              max(radius * 0.7, 1.0), level + 1))
+    yy = np.linspace(0.0, 1.0, h, dtype=np.float32)[:, None]
+    xx = np.linspace(0.0, 1.0, w, dtype=np.float32)[None, :]
+    tone = rng.uniform(-1.0, 1.0, 3).astype(np.float32)
+    background = np.empty((h, w, 3), np.float32)
+    background[..., 0] = 90 + 40 * yy + 20 * tone[0] * xx      # B
+    background[..., 1] = 130 + 30 * xx + 20 * tone[1] * yy     # G
+    background[..., 2] = 100 + 30 * yy * xx + 20 * tone[2]     # R
+    branch = np.array([40, 70, 110], np.float32) + rng.normal(0, 8, 3)
+    img = np.where(labels[..., None] == 1, branch, background)
+    img = img + rng.normal(0.0, noise, (h, w, 3)).astype(np.float32)
+    return np.clip(img, 0, 255).astype(np.uint8), labels
+
+
+def make_branch_tree(root: str, n_train: int = 8, n_val: int = 4,
+                     size_hw: Tuple[int, int] = (1080, 1920),
+                     portrait_hw: Optional[Tuple[int, int]] = None,
+                     seed: int = 0) -> str:
+    """Write the Apple Branch tree under ``root`` (JPEG quality 95, 4:2:0,
+    cv2's default); returns ``root``.
+    ``portrait_hw`` (upright height, width) adds one frame, listed in both
+    splits, whose JPEG holds the frame turned 90 degrees counter-clockwise
+    and EXIF orientation 6, so that a reader that applies the tag gets it
+    upright, at the size of its label map."""
+    rng = np.random.default_rng(seed)
+    for sub in ('JPEGImages', 'SegmentationClassPNG'):
+        os.makedirs(osp.join(root, sub), exist_ok=True)
+    palette = np.asarray(APPLE_BRANCH_PALETTE, np.uint8)
+
+    def write(name, hw, orientation=0):
+        img, labels = branch_frame(rng, hw)
+        if orientation:
+            img = np.ascontiguousarray(np.rot90(img))     # stored on its side
+        imageio.imwrite(osp.join(root, 'JPEGImages', name + '.jpg'), img,
+                        orientation=orientation)
+        with open(osp.join(root, 'SegmentationClassPNG', name + '.png'), 'wb') as f:
+            f.write(imageio.encode_png(labels, palette=palette))
+        return name
+
+    splits = {'train': [write(f'train_{i:04d}', size_hw) for i in range(n_train)],
+              'val': [write(f'val_{i:04d}', size_hw) for i in range(n_val)]}
+    if portrait_hw is not None:
+        name = write('portrait_0000', portrait_hw, orientation=6)
+        for names in splits.values():
+            names.append(name)
+    for split, names in splits.items():
+        with open(osp.join(root, f'{split}.txt'), 'w', encoding='utf-8') as f:
+            f.write(''.join(n + '\n' for n in names))
     return root

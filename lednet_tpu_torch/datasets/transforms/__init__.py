@@ -1,11 +1,14 @@
 """The data pipeline's transforms (registered in ``TRANSFORMS``)."""
 from lednet_tpu_torch.datasets.transforms.formatting import PackSegInputs
+from lednet_tpu_torch.datasets.transforms.fused import FusedRandomResizeCropFlip
 from lednet_tpu_torch.datasets.transforms.loading import (LoadAnnotations,
                                                           LoadImageFromFile,
                                                           LoadImageFromNDArray)
 from lednet_tpu_torch.datasets.transforms.transforms import (
     PhotoMetricDistortion, RandomCrop, RandomFlip, RandomResize, Resize)
+from lednet_tpu_torch.datasets.transforms.tta import TestTimeAug
 
-__all__ = ['LoadAnnotations', 'LoadImageFromFile', 'LoadImageFromNDArray',
-           'PackSegInputs', 'PhotoMetricDistortion', 'RandomCrop',
-           'RandomFlip', 'RandomResize', 'Resize']
+__all__ = ['FusedRandomResizeCropFlip', 'LoadAnnotations',
+           'LoadImageFromFile', 'LoadImageFromNDArray', 'PackSegInputs',
+           'PhotoMetricDistortion', 'RandomCrop', 'RandomFlip',
+           'RandomResize', 'Resize', 'TestTimeAug']

@@ -39,6 +39,16 @@ def rescale_size(old_size: Tuple[int, int], scale) -> Tuple[int, int]:
     return int(w * factor + 0.5), int(h * factor + 0.5)
 
 
+def class_counts(labels: np.ndarray, ignore_index: int) -> np.ndarray:
+    """The nonzero label counts without ``ignore_index`` (what
+    ``np.unique(..., return_counts=True)`` gives, in one bincount): the
+    ``cat_max_ratio`` test of the random crops."""
+    counts = np.bincount(labels.ravel())
+    if ignore_index < len(counts):
+        counts[ignore_index] = 0
+    return counts[counts > 0]
+
+
 def imresize(img: np.ndarray, size_wh, interpolation: str = 'bilinear'):
     """cv2.resize of a uint8 image to (w, h), bilinear or nearest."""
     if interpolation == 'bilinear':
@@ -128,14 +138,6 @@ class RandomCrop:
         x = rng.randint(0, max(w - self.crop_size[1], 0) + 1)
         return y, min(y + self.crop_size[0], h), x, min(x + self.crop_size[1], w)
 
-    def _class_counts(self, crop: np.ndarray) -> np.ndarray:
-        """The nonzero label counts without ``ignore_index`` (what
-        ``np.unique(..., return_counts=True)`` gives, in one bincount)."""
-        counts = np.bincount(crop.ravel())
-        if self.ignore_index < len(counts):
-            counts[self.ignore_index] = 0
-        return counts[counts > 0]
-
     def __call__(self, results: Dict, rng=None) -> Dict:
         rng = _need_rng(rng, 'RandomCrop')
         img = results['img']
@@ -143,7 +145,7 @@ class RandomCrop:
         gt = results.get('gt_seg_map')
         if self.cat_max_ratio < 1.0 and gt is not None:
             for _ in range(10):
-                cnt = self._class_counts(gt[y1:y2, x1:x2])
+                cnt = class_counts(gt[y1:y2, x1:x2], self.ignore_index)
                 if len(cnt) > 1 and cnt.max() / cnt.sum() < self.cat_max_ratio:
                     break
                 y1, y2, x1, x2 = self._sample_bbox(img.shape, rng)

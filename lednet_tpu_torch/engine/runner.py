@@ -20,9 +20,14 @@ GPU (or the CPU, ``device='cpu'``):
   (:func:`lednet_tpu_torch.engine.make_eval_step`: one CUDA graph per shape
   on the kernel path, A-D), crops and resizes the logits to each image's
   ``ori_shape`` (``postprocess_logits``) and feeds :class:`IoUMetric`.
+  A test-time-augmented sample (the ``tta_pipeline``'s ``TestTimeAug``)
+  runs each view alone through the same eval step, padded to the bucket;
+  its logits are cropped, un-flipped and resized to the original frame, and
+  the views' mean probabilities give the prediction (``merge_tta_probs``).
 
-Test-time augmentation, ``val_spatial_shard`` and the visualization hook's
-``draw=True`` raise ``NotImplementedError`` (ROADMAP Queue 1 items 6, 7, 5).
+``val_spatial_shard``, the visualization hook's ``draw=True`` and the
+single-logit head (``out_channels=1``) raise ``NotImplementedError``
+(ROADMAP Queue 1 items 7, 5, 6).
 """
 from __future__ import annotations
 
@@ -45,6 +50,7 @@ from lednet_tpu_torch.engine.state import (TrainState, create_train_state,
                                            make_eval_step, make_train_step)
 from lednet_tpu_torch.models.layers import init_weights
 from lednet_tpu_torch.models.segmentors.encoder_decoder import postprocess_logits
+from lednet_tpu_torch.models.segmentors.seg_tta import merge_tta_probs
 from lednet_tpu_torch.registry import METRICS, MODELS
 
 
@@ -217,28 +223,24 @@ class Runner:
         metric = METRICS.build(dict(cfg.get(evaluator_key) or dict(type='IoUMetric')))
         metric.class_names = metainfo.get('classes')
         eval_step = self.eval_step()
-        bucket = int(cfg.get('eval_pad_multiple', 128))
         vb = max(1, int(cfg.get('val_batch_size', 8)))
 
         def flush(items):
             n = len(items)
             items = items + [items[-1]] * (vb - n)   # one shape per chunk
             xs = np.stack([np.asarray(it['inputs']) for it in items])
-            h, w = xs.shape[1:3]
-            pad_h, pad_w = (-h) % bucket, (-w) % bucket
-            if pad_h or pad_w:
-                xs = np.pad(xs, ((0, 0), (0, pad_h), (0, pad_w), (0, 0)))
-            logits = eval_step(torch.from_numpy(xs).to(self.device))
-            meta = items[0]['metainfo']
-            _, pred = postprocess_logits(
-                logits, (logits.shape[1] - h, logits.shape[2] - w),
-                ori_shape=tuple(meta.get('ori_shape') or ()) or None)
+            _, pred = self._predict(eval_step, xs, items[0]['metainfo'])
             labels = np.stack([np.asarray(it['gt_seg_map']) for it in items[:n]])
             metric.process(pred[:n], torch.from_numpy(labels).to(pred.device),
                            num_classes)
 
         pending: Dict[Any, list] = {}
         for batch in loader:
+            if 'tta_views' in batch:
+                _, pred = self.predict_tta(batch['tta_views'], eval_step)
+                metric.process(pred[None], torch.from_numpy(
+                    np.asarray(batch['gt_seg_map'])).to(pred.device), num_classes)
+                continue
             for i, meta in enumerate(batch['metainfo']):
                 item = dict(inputs=batch['inputs'][i],
                             gt_seg_map=batch['gt_seg_map'][i], metainfo=meta)
@@ -252,6 +254,38 @@ class Runner:
         results = metric.compute_metrics()
         print(metric.table(), flush=True)
         return results
+
+    def _predict(self, eval_step, xs: np.ndarray, meta: Dict, flip: bool = False,
+                 flip_direction: str = 'horizontal'):
+        """(B, h, w, 3) images of one shape, padded to a multiple of
+        ``eval_pad_multiple``, through ``eval_step``: (logits, prediction)
+        cropped, un-flipped and resized to ``meta``'s ``ori_shape``."""
+        bucket = int(self.cfg.get('eval_pad_multiple', 128))
+        h, w = xs.shape[1:3]
+        pad_h, pad_w = (-h) % bucket, (-w) % bucket
+        if pad_h or pad_w:
+            xs = np.pad(xs, ((0, 0), (0, pad_h), (0, pad_w), (0, 0)))
+        logits = eval_step(torch.from_numpy(xs).to(self.device))
+        return postprocess_logits(
+            logits, (logits.shape[1] - h, logits.shape[2] - w),
+            ori_shape=tuple(meta.get('ori_shape') or ()) or None,
+            flip=flip, flip_direction=flip_direction)
+
+    def predict_tta(self, views, eval_step=None):
+        """One sample's test-time views (a ``tta_views`` list), each alone
+        through ``eval_step`` (the runner's by default; any callable from
+        (1, H, W, 3) images to logits): (mean probabilities (H, W, C),
+        prediction (H, W)) in the original frame."""
+        eval_step = eval_step or self.eval_step()
+        view_logits = []
+        for view in views:
+            meta = view['metainfo']
+            logits, _ = self._predict(
+                eval_step, np.asarray(view['inputs'])[None], meta,
+                flip=bool(meta.get('flip')),
+                flip_direction=meta.get('flip_direction') or 'horizontal')
+            view_logits.append(logits[0])
+        return merge_tta_probs(view_logits)
 
     def test(self, checkpoint: Optional[str] = None) -> Dict[str, float]:
         if checkpoint:

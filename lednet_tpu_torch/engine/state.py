@@ -16,7 +16,8 @@ Counterpart of ``lednet_tpu/engine/state.py`` (``TrainState`` :25,
   its graphs on every parameter's and buffer's ``_version`` and storage and
   captures again after an optimizer step or a ``load_state_dict``, as the
   JAX step, which takes the weights as an argument, never goes stale.  It
-  keeps the graphs of the :data:`MAX_GRAPHS` input shapes used last.
+  keeps the graphs of the :data:`MAX_GRAPHS` input shapes used last, all
+  in one memory pool.
 """
 from __future__ import annotations
 
@@ -110,8 +111,10 @@ def float32_math():
 
 
 # the graphs an eval step keeps, one per input shape, least recently used
-# dropped first: each holds a memory pool for its forward's tensors
-MAX_GRAPHS = 8
+# dropped first: two frame sizes' test-time views (6 scales each) and val
+# shapes.  They share one memory pool: each graph keeps only its output
+# there, and the pool's temporaries are those of the largest forward.
+MAX_GRAPHS = 16
 
 
 class EvalStep:
@@ -129,11 +132,12 @@ class EvalStep:
         self.captures = 0            # graphs captured so far
         self._graphs: Dict[tuple, tuple] = collections.OrderedDict()
         self._weights: Optional[tuple] = None
+        self._pool = None            # the memory pool the graphs share
 
     def __getstate__(self):
         # a copy (``copy.deepcopy`` of the model) or a pickle holds no graph
         return dict(self.__dict__, _graphs=collections.OrderedDict(),
-                    _weights=None)
+                    _weights=None, _pool=None)
 
     def weights_key(self) -> tuple:
         """What the graphs depend on: every parameter's and buffer's
@@ -169,6 +173,7 @@ class EvalStep:
         weights = self.weights_key()
         if weights != self._weights:
             self._graphs.clear()      # they hold operands of older weights
+            self._pool = None
             self._weights = weights
         key = (tuple(inputs.shape), inputs.dtype)
         entry = self._graphs.get(key)
@@ -180,7 +185,8 @@ class EvalStep:
         static_in, graph, static_out = entry
         static_in.copy_(inputs)
         graph.replay()
-        # the caller keeps results across replays, which overwrite static_out
+        # the caller keeps results across replays, which overwrite static_out;
+        # so may another graph's replay: they share the pool's temporaries
         return static_out.clone()
 
     def _capture(self, inputs: torch.Tensor, device: torch.device) -> tuple:
@@ -188,7 +194,13 @@ class EvalStep:
         warm-up builds the kernel library and the operand caches, sets the
         kernels' shared-memory attributes and lets cuDNN pick its
         algorithms, all outside capture.  The capture is thread-local, so
-        other threads may call CUDA meanwhile.  A failed capture raises."""
+        other threads may call CUDA meanwhile.  A failed capture raises.
+
+        Every graph of the step allocates from one pool.  That is safe
+        because the step replays one graph at a time and copies its output
+        out before the next replay: the temporaries of one graph may then
+        overwrite another's output, which is rewritten at its own next
+        replay.  ``static_in`` lies outside the pool."""
         with torch.inference_mode(False):
             static_in = torch.empty(inputs.shape, dtype=inputs.dtype,
                                     device=device)
@@ -202,8 +214,11 @@ class EvalStep:
         graph = torch.cuda.CUDAGraph()
         # thread_local: CUDA calls of other threads (a data loader's pinned
         # allocations and event waits) must not invalidate the capture
-        with torch.cuda.graph(graph, capture_error_mode='thread_local'):
+        with torch.cuda.graph(graph, pool=self._pool,
+                              capture_error_mode='thread_local'):
             static_out = self.forward(static_in)
+        if self._pool is None:
+            self._pool = graph.pool()
         self.captures += 1
         return static_in, graph, static_out
 
@@ -218,7 +233,9 @@ def make_eval_step(model: nn.Module, preprocessor=None,
     first call of each shape after an eager warm-up and again whenever a
     parameter or buffer of the model changed (an optimizer step,
     ``load_state_dict``, ``.to()``); it keeps the graphs of the last
-    :data:`MAX_GRAPHS` shapes and returns a copy of the graph's output.
+    :data:`MAX_GRAPHS` shapes, in one memory pool, and returns a copy of
+    the graph's output.  A step replays one graph at a time: do not call
+    one step from two threads at once.
     It never runs eagerly in place of a graph: a failed capture raises.  On
     a CPU model (``device='cpu'``) it runs eagerly.  ``mode='slide'`` is
     later work in the port and raises ``NotImplementedError``.

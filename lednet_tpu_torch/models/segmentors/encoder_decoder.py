@@ -3,7 +3,7 @@ at the boundary.
 
 Counterpart of ``lednet_tpu/models/segmentors/encoder_decoder.py``
 (``extract_feat`` :58, ``loss`` :77, ``predict`` :90, ``postprocess_logits``
-:156).  ``loss`` and ``predict`` take (B, H, W, 3) images; ``predict``
+:156, with its flip and single-logit threshold).  ``loss`` and ``predict`` take (B, H, W, 3) images; ``predict``
 returns (B, H, W, C) logits.  Inside, the model runs NCHW (an NHWC view of
 channels-first memory goes in and comes out without a copy).  Slide
 inference, necks and the single-logit binary head are later work.
@@ -79,13 +79,24 @@ class EncoderDecoder(nn.Module):
 
 def postprocess_logits(logits: torch.Tensor, pad: Tuple[int, int],
                        ori_shape: Optional[Tuple[int, int]] = None,
-                       align_corners: bool = False):
-    """Crop padding, resize to the original shape, then argmax.  (B, H, W, C)
-    in; returns (seg_logits, seg_pred)."""
+                       flip: bool = False, flip_direction: str = 'horizontal',
+                       align_corners: bool = False,
+                       out_channels: Optional[int] = None,
+                       threshold: float = 0.3):
+    """Crop the padding, undo a flip, resize to the original shape, then
+    take the argmax (or, with one logit channel, sigmoid > ``threshold``).
+    (B, H, W, C) in; returns (seg_logits, seg_pred)."""
     pad_h, pad_w = pad
     H, W = logits.shape[1] - pad_h, logits.shape[2] - pad_w
     logits = logits[:, :H, :W, :]
+    if flip:
+        logits = logits.flip(2 if flip_direction == 'horizontal' else 1)
     if ori_shape is not None and tuple(ori_shape) != (H, W):
         logits = resize_bilinear(logits.permute(0, 3, 1, 2), ori_shape,
                                  align_corners).permute(0, 2, 3, 1)
-    return logits, torch.argmax(logits, dim=-1).to(torch.int32)
+    n_ch = out_channels if out_channels is not None else logits.shape[-1]
+    if n_ch == 1:
+        pred = (torch.sigmoid(logits[..., 0]) > threshold).to(torch.int32)
+    else:
+        pred = torch.argmax(logits, dim=-1).to(torch.int32)
+    return logits, pred

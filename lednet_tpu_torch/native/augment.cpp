@@ -11,6 +11,12 @@
 //   resize floors dst * (1 / (dst_size / src_size)), cv2's indexing.
 // - png_unfilter: the five PNG row filters undone (Paeth and Average run
 //   along each row, which numpy cannot vectorize).
+// - fused_resize_crop_flip_u8: the JAX package's one-pass resize, crop and
+//   horizontal flip (lednet_tpu/native/augment.cpp:144): half-pixel
+//   bilinear with double-precision scales, source coordinates clamped at 0
+//   and rounded to float, each lerp a fused multiply-add (that library is
+//   built with -march=native, and GCC contracts a * b + c there), +0.5
+//   truncation; or nearest, floor(dst * scale).  Its arithmetic, not cv2's.
 // - bgr2hsv_u8 / hsv2bgr_u8: cv2.cvtColor's 8-bit BGR<->HSV (H in 0..179).
 //   BGR2HSV is cv2's integer table method.  HSV2BGR is cv2's float method:
 //   its vectorized body, in blocks of 32 pixels of a row, truncates; the
@@ -91,6 +97,13 @@ void hresize_row(const uint8_t* src, int c, const LinearTaps& tx, int dw,
       for (int k = 0; k < c; ++k) o[k] = p[k] * kCoefScale;
     }
   }
+}
+
+// The fused pass's source coordinate: (dst + 0.5) * scale - 0.5, clamped
+// at 0, as float.
+inline float fused_src_coord(int dst, double scale) {
+  double s = (dst + 0.5) * scale - 0.5;
+  return s < 0.0 ? 0.0f : static_cast<float>(s);
 }
 
 }  // namespace
@@ -296,6 +309,55 @@ void hsv2bgr_u8(const uint8_t* src, int rows, int width, uint8_t* dst) {
           const float t = std::nearbyint(bgr[k] * 255.f);
           o[k] = static_cast<uint8_t>(t < 0.f ? 0.f : (t > 255.f ? 255.f : t));
         }
+      }
+    }
+  }
+}
+
+// Resize (sh, sw) -> (rh, rw), crop [cy, cy + ch) x [cx, cx + cw), and flip
+// horizontally when `flip`: one pass over the crop's pixels.
+void fused_resize_crop_flip_u8(const uint8_t* src, int sh, int sw, int c,
+                               int rh, int rw, int cy, int cx, int ch, int cw,
+                               int flip, int nearest, uint8_t* dst) {
+  const double scale_y = static_cast<double>(sh) / rh;
+  const double scale_x = static_cast<double>(sw) / rw;
+  for (int y = 0; y < ch; ++y) {
+    const int ry = y + cy;
+    uint8_t* out = dst + static_cast<size_t>(y) * cw * c;
+    if (nearest) {
+      const int sy = std::min(static_cast<int>(ry * scale_y), sh - 1);
+      const uint8_t* row = src + static_cast<size_t>(sy) * sw * c;
+      for (int x = 0; x < cw; ++x) {
+        const int rx = flip ? (cx + cw - 1 - x) : (x + cx);
+        const int sx = std::min(static_cast<int>(rx * scale_x), sw - 1);
+        std::memcpy(out + static_cast<size_t>(x) * c,
+                    row + static_cast<size_t>(sx) * c, c);
+      }
+      continue;
+    }
+    const float sy = fused_src_coord(ry, scale_y);
+    const int y0 = std::min(static_cast<int>(sy), sh - 1);
+    const int y1 = std::min(y0 + 1, sh - 1);
+    const float wy = sy - y0;
+    const uint8_t* r0 = src + static_cast<size_t>(y0) * sw * c;
+    const uint8_t* r1 = src + static_cast<size_t>(y1) * sw * c;
+    for (int x = 0; x < cw; ++x) {
+      const int rx = flip ? (cx + cw - 1 - x) : (x + cx);
+      const float sx = fused_src_coord(rx, scale_x);
+      const int x0 = std::min(static_cast<int>(sx), sw - 1);
+      const int x1 = std::min(x0 + 1, sw - 1);
+      const float fx = sx - x0;
+      const uint8_t* p00 = r0 + static_cast<size_t>(x0) * c;
+      const uint8_t* p01 = r0 + static_cast<size_t>(x1) * c;
+      const uint8_t* p10 = r1 + static_cast<size_t>(x0) * c;
+      const uint8_t* p11 = r1 + static_cast<size_t>(x1) * c;
+      for (int k = 0; k < c; ++k) {
+        const float top = std::fma(static_cast<float>(p01[k] - p00[k]), fx,
+                                   static_cast<float>(p00[k]));
+        const float bot = std::fma(static_cast<float>(p11[k] - p10[k]), fx,
+                                   static_cast<float>(p10[k]));
+        const float v = std::fma(bot - top, wy, top);
+        out[static_cast<size_t>(x) * c + k] = static_cast<uint8_t>(v + 0.5f);
       }
     }
   }

@@ -1,4 +1,5 @@
-"""numpy versions of the arithmetic in ``augment.cpp``, for the tests.
+"""numpy versions of the arithmetic in ``augment.cpp`` and ``jpeg.cpp``, for
+the tests.
 
 Each function computes what its counterpart in
 :mod:`lednet_tpu_torch.native` computes, step for step, so the tests can
@@ -7,6 +8,8 @@ hold the library to it exactly (the fused multiply-adds of
 slow and are not used by the pipeline.
 """
 from __future__ import annotations
+
+from typing import Sequence
 
 import numpy as np
 
@@ -148,3 +151,110 @@ def hsv2bgr(img: np.ndarray) -> np.ndarray:
     width = img.shape[1]
     in_body = (np.arange(width) < width // HSV_BLOCK * HSV_BLOCK)[None, :, None]
     return np.clip(np.where(in_body, body, tail), 0, 255).astype(np.uint8)
+
+
+# ------------------------------------------------------------------- JPEG
+_IDCT_FIX = dict(c0298=2446, c0390=3196, c0541=4433, c0765=6270, c0899=7373,
+                 c1175=9633, c1501=12299, c1847=15137, c1961=16069,
+                 c2053=16819, c2562=20995, c3072=25172)
+
+
+def _idct_1d(x, shift):
+    """One islow pass over the last axis (8 values), descaled by ``shift``."""
+    f = _IDCT_FIX
+    z1 = (x[..., 2] + x[..., 6]) * f['c0541']
+    tmp2 = z1 - x[..., 6] * f['c1847']
+    tmp3 = z1 + x[..., 2] * f['c0765']
+    tmp0 = (x[..., 0] + x[..., 4]) << 13
+    tmp1 = (x[..., 0] - x[..., 4]) << 13
+    t10, t13, t11, t12 = tmp0 + tmp3, tmp0 - tmp3, tmp1 + tmp2, tmp1 - tmp2
+    o0, o1, o2, o3 = x[..., 7], x[..., 5], x[..., 3], x[..., 1]
+    z1, z2, z3, z4 = o0 + o3, o1 + o2, o0 + o2, o1 + o3
+    z5 = (z3 + z4) * f['c1175']
+    o0, o1, o2, o3 = (o0 * f['c0298'], o1 * f['c2053'], o2 * f['c3072'],
+                      o3 * f['c1501'])
+    z1, z2 = z1 * -f['c0899'], z2 * -f['c2562']
+    z3, z4 = z3 * -f['c1961'] + z5, z4 * -f['c0390'] + z5
+    o0, o1, o2, o3 = o0 + z1 + z3, o1 + z2 + z4, o2 + z2 + z3, o3 + z1 + z4
+    out = np.stack([t10 + o3, t11 + o2, t12 + o1, t13 + o0,
+                    t13 - o0, t12 - o1, t11 - o2, t10 - o3], -1)
+    return (out + (1 << (shift - 1))) >> shift
+
+
+def idct_islow(coefs: np.ndarray, qtable: np.ndarray) -> np.ndarray:
+    """libjpeg's islow inverse DCT of (..., 8, 8) quantized coefficients
+    (natural order) with an (8, 8) table -> (..., 8, 8) uint8 samples."""
+    x = coefs.astype(np.int64) * qtable.astype(np.int64)
+    cols = _idct_1d(np.swapaxes(x, -1, -2), 11)          # pass 1: columns
+    rows = _idct_1d(np.swapaxes(cols, -1, -2), 18)       # pass 2: rows
+    return np.clip(rows + 128, 0, 255).astype(np.uint8)
+
+
+def _upsample(plane: np.ndarray, hf: int, vf: int, dh: int, dw: int,
+              height: int) -> np.ndarray:
+    """jdsample.c: a (dh, dw) component plane to ``height`` rows and
+    ``dw * hf`` columns."""
+    p = plane[:dh, :dw].astype(np.int64)
+    if (hf, vf) == (1, 1):
+        return p[:height]
+    iy = np.arange(height) // vf
+    near = p[np.minimum(iy, dh - 1)]
+    far = p[np.clip(np.where(np.arange(height) % 2 == 1, iy + 1, iy - 1), 0, dh - 1)]
+    if (hf, vf) == (1, 2):
+        bias = np.where(np.arange(height) % 2 == 1, 2, 1)[:, None]
+        return (near * 3 + far + bias) >> 2
+    fancy = dw > 2 and hf == 2 and vf in (1, 2)
+    if not fancy:
+        return np.repeat(near, hf, axis=1)
+    if vf == 1:          # h2v1: (3 * this + neighbour + 1 or 2) >> 2
+        c, even_bias, odd_bias, shift = near, 1, 2, 2
+    else:                # h2v2: column sums of 3 * near + far, >> 4
+        c, even_bias, odd_bias, shift = near * 3 + far, 8, 7, 4
+    left = np.concatenate([c[:, :1], c[:, :-1]], 1)
+    right = np.concatenate([c[:, 1:], c[:, -1:]], 1)
+    out = np.empty((height, 2 * dw), np.int64)
+    out[:, 0::2] = (c * 3 + left + even_bias) >> shift
+    out[:, 1::2] = (c * 3 + right + odd_bias) >> shift
+    return out
+
+
+def _fix16(x: float) -> int:
+    return int(x * 65536 + 0.5)
+
+
+def jpeg_pixels(head: dict, blocks: Sequence[np.ndarray],
+                qtables: Sequence[np.ndarray], gray: bool = False) -> np.ndarray:
+    """The pixels of a JPEG from its coefficients (``native.jpeg_coefficients``):
+    islow IDCT, fancy upsampling, jdcolor.c's conversion; (H, W, 3) BGR or
+    (H, W) gray, as ``native.jpeg_decode``."""
+    H, W = head['height'], head['width']
+    maxh = max(h for h, _ in head['sampling'])
+    maxv = max(v for _, v in head['sampling'])
+    space = head['color_space']
+    needed = 1 if gray and space != 'rgb' else head['components']
+    planes = []
+    for ci in range(needed):
+        h, v = head['sampling'][ci]
+        b = idct_islow(blocks[ci], qtables[ci])
+        rows, cols = b.shape[:2]
+        plane = b.transpose(0, 2, 1, 3).reshape(rows * 8, cols * 8)
+        dh, dw = -(-H * v // maxv), -(-W * h // maxh)
+        planes.append(_upsample(plane, maxh // h, maxv // v, dh, dw, H)[:, :W])
+    if needed == 1:
+        p = planes[0].astype(np.uint8)
+        return p if gray else np.repeat(p[..., None], 3, axis=2)
+    p0, p1, p2 = planes
+    if space == 'rgb':
+        if gray:
+            return ((_fix16(0.299) * p0 + _fix16(0.587) * p1 +
+                     _fix16(0.114) * p2 + 32768) >> 16).astype(np.uint8)
+        return np.stack([p2, p1, p0], -1).astype(np.uint8)
+    x = np.arange(256) - 128
+    cr_r = (_fix16(1.402) * x + 32768) >> 16
+    cb_b = (_fix16(1.772) * x + 32768) >> 16
+    cr_g = -_fix16(0.71414) * x
+    cb_g = -_fix16(0.34414) * x + 32768
+    r = p0 + cr_r[p2]
+    g = p0 + ((cb_g[p1] + cr_g[p2]) >> 16)
+    b = p0 + cb_b[p1]
+    return np.clip(np.stack([b, g, r], -1), 0, 255).astype(np.uint8)

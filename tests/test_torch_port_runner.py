@@ -235,8 +235,6 @@ def test_unported_options_raise(tree, tmp_path):
         sys.path.pop(0)
     with pytest.raises(NotImplementedError, match='Queue 1 item 7'):
         torch_port_train.main(['cfg.py', '--launcher', 'pytorch'])
-    with pytest.raises(NotImplementedError, match='Queue 1 item 6'):
-        torch_port_test.main(['cfg.py', 'x.pth', '--tta'])
     with pytest.raises(NotImplementedError, match='Queue 1 item 7'):
         torch_port_test.main(['cfg.py', 'x.pth', '--launcher', 'slurm'])
     if not torch.cuda.is_available():

@@ -592,8 +592,8 @@ def test_replay_launch_accounting(monkeypatch):
 
 def test_eval_step_keeps_the_last_graphs(monkeypatch):
     """The step keeps the graphs of the MAX_GRAPHS shapes used last and drops
-    the least recently used one, freeing it (and with it its memory pool);
-    changed weights drop every graph."""
+    the least recently used one, freeing it (the pool the graphs share goes
+    with the last of them); changed weights drop every graph."""
     import gc
     import weakref
     from lednet_tpu_torch.engine import state as engine_state

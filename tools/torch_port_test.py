@@ -2,14 +2,16 @@
 """Evaluate a checkpoint with the PyTorch port (``lednet_tpu_torch``).
 
     python tools/torch_port_test.py CONFIG CHECKPOINT [--work-dir DIR]
-        [--out DIR] [--cfg-options KEY=VALUE ...]
+        [--out DIR] [--tta] [--cfg-options KEY=VALUE ...]
 
 The CLI of ``tools/test.py``: the test loader through the port's
 ``Runner.test`` on one GPU (``--device cpu`` runs on the CPU); prints the
 metrics as one JSON line and writes them to ``WORK_DIR/test_results.json``.
 CHECKPOINT is an ``iter_N.pth`` of ``tools/torch_port_train.py``.  ``--out``
-writes each prediction as a PNG.  ``--tta`` is ROADMAP Queue 1 item 6 and
-``--launcher`` other than ``none`` item 7; both raise.
+writes each prediction as a PNG.  ``--tta`` swaps the test pipeline for the
+config's ``tta_pipeline`` (each image's views merged by their mean
+probabilities).  ``--launcher`` other than ``none`` is ROADMAP Queue 1 item
+7 and raises.
 """
 import argparse
 import json
@@ -37,9 +39,6 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.tta:
-        raise NotImplementedError('test-time augmentation is later work in '
-                                  'the port (ROADMAP Queue 1 item 6)')
     if args.launcher != 'none':
         raise NotImplementedError('multi-GPU evaluation is later work in the '
                                   'port (ROADMAP Queue 1 item 7)')
@@ -51,6 +50,8 @@ def main(argv=None):
         cfg.merge_from_dict(dict(kv.split('=', 1) for kv in args.cfg_options))
     work_dir = args.work_dir or osp.join(
         './work_dirs', osp.splitext(osp.basename(args.config))[0])
+    if args.tta:
+        cfg['test_dataloader']['dataset']['pipeline'] = cfg['tta_pipeline']
     if args.out:
         ev = dict(cfg.get('test_evaluator') or cfg.get('val_evaluator')
                   or dict(type='IoUMetric'))
