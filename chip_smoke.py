@@ -114,13 +114,39 @@ printing one flushed line with its seconds:
    probabilities within TOL_KERNEL, argmax agreement 1, the prediction
    equal) and the time of each, graphs captured and peak memory.
 
+10. zoo: DDRNet-23-slim and BiSeNetV1 R-18 (``configs/ddrnet/``,
+   ``configs/bisenetv1/``, unchanged) at full width, seeded weights and
+   non-trivial BatchNorm stats: kernel A, their only kernel, at float32
+   output (these configs set no ``out_dtype``) against its plain version,
+   exact, at 1 x 1024 x 1024 and at the val shape 8 x 1024 x 2048; launch
+   counts set to 0, ``inference_model`` on 2 seeded 1024x1024 images
+   through the kernels under a device trace, counts read (A must launch
+   once per forward on the device, B-E never); the kernel path and
+   ``inference_model`` under torch's default TF32 flags against the
+   float32 module forms (TOL_MODEL, argmax >= 99.9%); ``make_eval_step``
+   replayed against the eager kernel path (TOL_KERNEL, argmax 1) and both
+   timed like phase 7; kernel A's time at float32 output; DDRNet-23 (c=64)
+   once, eager and replayed; each config's train step at its batch (6, 4)
+   at 1024x1024, 5 timed steps after a warm-up, peak memory; one step at 2
+   x 256x256 on the card (cuDNN off) against the CPU's within phase 6's
+   bounds in float64 (in float32 these two models miss them even CPU
+   against CPU: the float32 distances are printed beside the CPU's own
+   float32-to-float64 distance), BiSeNetV1 with dropout 0 in every head
+   for this comparison only (two RNG streams cannot drop the same units);
+   DDRNet-23-slim
+   through ``tools/torch_port_train.py`` (20 steps, one val) on a tree of 6
+   + 2 2048x1024 frames, its iteration time and loader wait from the log,
+   and ``tools/torch_port_test.py`` on ``iter_20.pth`` equal to that val.
+
 It prints the card line and a ``{"kernels": [...]}`` line (``launches``:
 the wrappers' count in phase 4; ``device_launches``: the CUDA launches the
 device trace saw there; ``entry_point_launches`` and
 ``entry_point_device_launches``: the same of phase 8's train + val run;
 ``branch_launches``, ``branch_device_launches``: the same of phase 9's
 test + TTA run; ``branch_max_abs_err``: the kernel's largest error against
-its plain version over phase 9's shapes), and last ``{"ok": true,
+its plain version over phase 9's shapes; ``zoo_launches``,
+``zoo_device_launches``: the same of phase 10's ``inference_model`` runs,
+``zoo_max_abs_err``: A's at float32 output), and last ``{"ok": true,
 "device": {...}}``.
 Without CUDA, or without the package beside it, it exits non-zero and
 prints no result.
@@ -160,6 +186,13 @@ BRANCH_TRAIN, BRANCH_VAL = 8, 4
 BRANCH_FRAME_HW = (1080, 1920)          # a 1920x1080 photo
 BRANCH_PORTRAIT_HW = (1440, 1080)       # upright; stored on its side + EXIF 6
 BRANCH_TTA_RATIOS = (0.5, 0.75, 1.0, 1.25, 1.5, 1.75)   # apple_branch.py
+# phase 10: the paper's two same-val baselines at their configs' widths
+ZOO = (('DDRNet-23-slim', 'configs/ddrnet/ddrnet_23-slim_cityscapes-1024x1024.py'),
+       ('BiSeNetV1 R-18', 'configs/bisenetv1/bisenetv1_r18-d32_cityscapes-1024x1024.py'))
+ZOO_WIDE = ('DDRNet-23', 'configs/ddrnet/ddrnet_23_cityscapes-1024x1024.py')
+ZOO_IMAGES = 2
+ZOO_TREE_TRAIN, ZOO_TREE_VAL = 6, 2
+ZOO_ITERS = 20
 CE_LOSSES = [dict(type='CrossEntropyLoss', loss_weight=1.0),
              dict(type='CrossEntropyLoss', loss_weight=0.4)]
 MIN_ARGMAX_AGREEMENT = 0.999
@@ -250,12 +283,16 @@ def device_trace(counts):
     from torch.profiler import ProfilerActivity, profile
     from lednet_tpu_torch.ops import kernels
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        # a session can miss the first few device activities it sees (up to
-        # three kernels in phase 8): spend them on tiny kernels of no port op
+        # a session can miss the device activities of its first moments (up
+        # to three kernels in phase 8; in one run 64 pad kernels and the
+        # next four): spend them on tiny kernels of no port op, then give
+        # the tracer time before the traced work
         pad = torch.zeros(1, device='cuda')
-        for _ in range(64):
-            pad.add_(1)
-        torch.cuda.synchronize()
+        for _ in range(2):
+            for _ in range(64):
+                pad.add_(1)
+            torch.cuda.synchronize()
+            time.sleep(0.05)
         yield
         torch.cuda.synchronize()
     counts.update(kernels.device_launches(prof.key_averages()))
@@ -1003,6 +1040,268 @@ def branch_path(card, expected):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def zoo_models(card):
+    """Phase 10, inference and training: DDRNet-23-slim and BiSeNetV1 R-18
+    at their configs' widths (seeded weights, non-trivial BatchNorm stats);
+    returns the kernels' wrapper launches and device launches of their main
+    path and kernel A's largest error at float32 output."""
+    import torch
+    from lednet_tpu_torch.apis import inference_model, init_model
+    from lednet_tpu_torch.config import Config
+    from lednet_tpu_torch.engine import (build_optimizer, create_train_state,
+                                         make_eval_step, make_train_step)
+    from lednet_tpu_torch.ops import kernels
+
+    gen = torch.Generator().manual_seed(SEED + 10)
+    rng = np.random.default_rng(SEED + 10)
+    imgs = [rng.integers(0, 256, (SIZE, SIZE, 3), dtype=np.uint8)
+            for _ in range(ZOO_IMAGES)]
+    x_dev = torch.from_numpy(imgs[0][None]).cuda()
+    x_val = torch.randint(0, 256, VAL_SHAPE + (3,), generator=gen,
+                          dtype=torch.uint8).cuda()
+    launches, device, a_errs = {}, {}, []
+    for label, config in ZOO:
+        model = init_model(config, device='cuda', generator=gen)
+        randomize_norms(model, gen)
+        pre = model.data_preprocessor
+        if pre.out_dtype != torch.float32:
+            raise AssertionError(f'{label}: the preprocessor emits {pre.out_dtype}')
+
+        # kernel A at float32 output, at the forward's and the val shape
+        for x in (x_dev, x_val):
+            calls = []
+            with recording(calls), torch.inference_mode():
+                pre(x, impl='cuda')
+            if [c[0] for c in calls] != ['normalize_image'] or \
+                    calls[0][3].get('out_dtype') != torch.float32:
+                raise AssertionError(f'{label}: preprocessing called {calls}')
+            check_against_plain('normalize_image', *calls[0][1:], 0.0, a_errs)
+
+        # the main path: inference_model through the kernels, counted
+        kernels.reset_launch_counts()
+        traced = {}
+        with device_trace(traced):
+            res = inference_model(model, imgs, impl='cuda')
+        counts = kernels.launch_counts()
+        forwards = ZOO_IMAGES + model._eval_step.captures
+        say(f'  {label}: wrapper launches {counts}; CUDA launches on the '
+            f'device ({forwards} forwards, {ZOO_IMAGES} replayed) {traced}')
+        want = {n: forwards if n == 'normalize_image' else 0 for n in traced}
+        if not counts['normalize_image'] or traced != want or any(
+                c for n, c in counts.items() if n != 'normalize_image'):
+            raise AssertionError(f'{label}: launches {counts}, device {traced}, '
+                                 f'not {want}')
+        for n, c in counts.items():
+            launches[n] = launches.get(n, 0) + c
+            device[n] = device.get(n, 0) + traced[n]
+
+        # the kernel path against the module forms, TF32 off; then under
+        # torch's defaults (cuDNN TF32 on) through inference_model
+        plain = inference_model(model, imgs, impl='plain')
+        saved = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            tf32 = inference_model(model, imgs)
+        finally:
+            torch.backends.cudnn.allow_tf32 = saved
+        for name, got in (('kernel path', res), ('inference_model under '
+                                                 "torch's defaults", tf32)):
+            for i, (a, b) in enumerate(zip(got, plain)):
+                la, lb = a['seg_logits'], b['seg_logits']
+                e = np.abs(la - lb).max() / np.abs(lb).max()
+                agree = (a['pred_sem_seg'] == b['pred_sem_seg']).mean()
+                say(f'  {label} image {i}: {name} vs float32 module forms rel '
+                    f'{e:.3e} (tol {TOL_MODEL:g}), argmax agreement '
+                    f'{agree:.6f}, max|logit| {np.abs(lb).max():.3f}')
+                if la.shape != (SIZE, SIZE, 19) or not (
+                        np.isfinite(la).all() and e <= TOL_MODEL
+                        and agree >= MIN_ARGMAX_AGREEMENT):
+                    raise AssertionError(f'{label} image {i}: {name} disagrees')
+
+        # the eval graph against the eager kernel path, then both timed
+        step = make_eval_step(model, pre)
+
+        def eager():
+            x, _, _ = pre(x_dev, impl='cuda')
+            return model.predict(x, 'cuda')
+        with torch.inference_mode():
+            check_logits(f'{label} replay vs eager kernel path', step(x_dev),
+                         eager())
+            replay_ms = cuda_ms(lambda: step(x_dev), reps=50, warmup=5)
+            eager_ms = cuda_ms(eager, reps=50, warmup=5)
+        say(f'  {label} forward 1x{SIZE}x{SIZE}: replayed graph '
+            f'{replay_ms:.3f} ms ({1000 / replay_ms:.1f} img/s); on {card}')
+        say(f'  {label} forward 1x{SIZE}x{SIZE}: eager kernel path '
+            f'{eager_ms:.3f} ms ({1000 / eager_ms:.1f} img/s); on {card}')
+        if label == ZOO[0][0]:
+            calls = []
+            with recording(calls), torch.inference_mode():
+                pre(x_dev, impl='cuda')
+            _, op, args, kw = calls[0]
+            with torch.inference_mode():
+                a_ms = cuda_ms(lambda: op(*args, **dict(kw, impl='cuda')), 20)
+                a_plain = cuda_ms(lambda: op(*args, **dict(kw, impl='plain')), 20)
+            bound, by, _ = bounds_ms('normalize_image', args, kw)
+            say(f'  kernel A at float32 output, 1x{SIZE}x{SIZE}: {a_ms:.4f} ms, '
+                f'plain {a_plain:.4f} ms, bound {bound:.4f} ms ({by}); on {card}')
+        del model, step, res, plain, tf32
+        torch.cuda.empty_cache()
+
+    # DDRNet-23 (c=64) once, eager and replayed
+    label, config = ZOO_WIDE
+    model = init_model(config, device='cuda', generator=gen)
+    randomize_norms(model, gen)
+    step = make_eval_step(model, model.data_preprocessor)
+    with torch.inference_mode():
+        x, _, _ = model.data_preprocessor(x_dev)
+        check_logits(f'{label} replay vs eager kernel path', step(x_dev),
+                     model.predict(x))
+        replay_ms = cuda_ms(lambda: step(x_dev), reps=1, warmup=0)
+        eager_ms = cuda_ms(lambda: model.predict(
+            model.data_preprocessor(x_dev)[0]), reps=1, warmup=0)
+    say(f'  {label} forward 1x{SIZE}x{SIZE}, one call each: replayed graph '
+        f'{replay_ms:.3f} ms, eager {eager_ms:.3f} ms; on {card}')
+    del model, step, x
+    torch.cuda.empty_cache()
+
+    # training: the config's batch at 1024x1024, then the card's step
+    # against the CPU's
+    for label, config in ZOO:
+        cfg = Config.fromfile(config)
+        batch = cfg.train_dataloader.batch_size
+        train_model = init_model(cfg, device='cuda', generator=gen)
+        opt, sched = build_optimizer(train_model, cfg.optim_wrapper,
+                                     cfg.param_scheduler)
+        train = make_train_step(train_model, opt, train_model.data_preprocessor)
+        state = create_train_state(train_model, opt, sched)
+        t_imgs, t_lbl = (t.cuda() for t in train_batch(rng, batch, SIZE))
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        times = []
+        for i in range(1 + TRAIN_STEPS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            state, logs = train(state, t_imgs, t_lbl)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+            vals = {k: v.item() for k, v in logs.items()}
+            if not all(np.isfinite(v) for v in vals.values()):
+                raise AssertionError(f'{label} step {state.step}: {vals}')
+        say(f'  {label} step {state.step} logs: ' + ', '.join(
+            f'{k} {v:.5f}' for k, v in vals.items()))
+        ms = sum(times[1:]) / TRAIN_STEPS
+        say(f'  {label} train step, bs {batch} at {SIZE}x{SIZE} (TF32 off): '
+            f'{ms:.3f} ms/step ({batch * 1000 / ms:.2f} img/s) over '
+            f'{TRAIN_STEPS} steps after a warm-up; on {card}')
+        say(f'  {label} train step peak memory allocated: '
+            f'{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, of it '
+            f'{held / 2**30:.3f} GiB allocated before the first step (this '
+            f'model, its batch and what earlier phases hold); on {card}')
+        del train_model, opt, train, state, t_imgs, t_lbl, logs
+        torch.cuda.empty_cache()
+
+        extra = {'model.data_preprocessor.size': (256, 256)}
+        note = ''
+        if cfg.model.get('auxiliary_head'):
+            # dropout draws from two RNG streams that cannot match
+            extra.update({'model.decode_head.dropout_ratio': 0.0,
+                          'model.auxiliary_head': [
+                              dict(h, dropout_ratio=0.0)
+                              for h in cfg.model.auxiliary_head]})
+            note = ', dropout 0 in every head for this comparison only'
+        cfg.merge_from_dict(extra)
+        s_imgs, s_lbl = train_batch(np.random.default_rng(SEED + 11), 2, 256)
+        # held in float64: in float32 these steps miss phase 6's bounds even
+        # CPU against CPU (the BatchNorms on global pools see 2 values per
+        # channel at batch 2), so the float32 pairs are printed beside the
+        # CPU's own float32 distance from float64
+        runs = {}
+        for dtype in (torch.float64, torch.float32):
+            runs['cpu', dtype] = train_once(cfg, 'cpu', s_imgs, s_lbl,
+                                            SEED + 11, dtype)
+            with torch.backends.cudnn.flags(enabled=False):
+                runs['cuda', dtype] = train_once(cfg, 'cuda', s_imgs, s_lbl,
+                                                 SEED + 11, dtype)
+        hold_train(f'{label} one step, 2x256x256, float64, the card (PyTorch\'s '
+                   f'own CUDA convs) vs the CPU{note}', runs['cuda', torch.float64],
+                   runs['cpu', torch.float64], ('weights', 'bn_stats'))
+        for name, run, ref in (
+                ('float32, the card vs the CPU', ('cuda', torch.float32),
+                 ('cpu', torch.float32)),
+                ('the CPU, float32 vs float64', ('cpu', torch.float32),
+                 ('cpu', torch.float64)),
+                ('the card float32 vs the CPU float64', ('cuda', torch.float32),
+                 ('cpu', torch.float64))):
+            dl, dw, ds, shares = train_distance(runs[run], runs[ref])
+            say(f'  {label} one step, 2x256x256, {name} (not held): |loss '
+                f'diff| {dl:.3e}, max |diff| weights {dw:.3e}, BatchNorm stats '
+                f'{ds:.3e}; nearest their bound: ' +
+                ', '.join(f'{k} {r:.3f}' for r, k in shares[:3]))
+    return launches, device, max(a_errs)
+
+
+def zoo_entry_points(card):
+    """Phase 10, entry points: DDRNet-23-slim through the train CLI
+    (``ZOO_ITERS`` steps, one val at the end) and the test CLI on the last
+    checkpoint, which must equal that val."""
+    import shutil
+    import tempfile
+    from lednet_tpu_torch.datasets.synthetic import make_cityscapes_tree
+
+    label, config = ZOO[0]
+    tmp = tempfile.mkdtemp(prefix='lednet_zoo_')
+    try:
+        t0 = time.perf_counter()
+        data = make_cityscapes_tree(os.path.join(tmp, 'cityscapes'),
+                                    n_train=ZOO_TREE_TRAIN, n_val=ZOO_TREE_VAL,
+                                    size_hw=FRAME_HW, seed=SEED + 10)
+        say(f'  fabricated {ZOO_TREE_TRAIN} train and {ZOO_TREE_VAL} val '
+            f'frames at {FRAME_HW[1]}x{FRAME_HW[0]} in '
+            f'{time.perf_counter() - t0:.2f} s')
+        options = [f'{k}.dataset.data_root={data}' for k in
+                   ('train_dataloader', 'val_dataloader', 'test_dataloader')]
+        work = os.path.join(tmp, 'work')
+        t0 = time.perf_counter()
+        iters, vals = train_log(run_cli(
+            ['tools/torch_port_train.py', config, '--work-dir', work,
+             '--cfg-options', *options, f'train_cfg.max_iters={ZOO_ITERS}',
+             f'train_cfg.val_interval={ZOO_ITERS}',
+             f'default_hooks.checkpoint.interval={ZOO_ITERS}',
+             'default_hooks.logger.interval=5']))
+        say(f'  {label} train CLI, {ZOO_ITERS} steps: '
+            f'{time.perf_counter() - t0:.2f} s; loss at ' +
+            ', '.join(f'{k}: {v[0]:.4f}' for k, v in iters.items()) +
+            f'; val at {sorted(vals)}: {vals.get(ZOO_ITERS)}')
+        if sorted(iters) != list(range(5, ZOO_ITERS + 1, 5)) or not all(
+                np.isfinite(v[0]) for v in iters.values()) or \
+                sorted(vals) != [ZOO_ITERS]:
+            raise AssertionError(f'train log {iters}, val at {sorted(vals)}')
+        steady = [iters[k] for k in iters if k > 5]
+        it_s = sum(v[1] for v in steady) / len(steady)
+        wait_s = sum(v[2] for v in steady) / len(steady)
+        say(f'  {label} train iteration (the CLI\'s log, steps 6-{ZOO_ITERS}, '
+            f'bs 6 of 1024x1024 crops, 4 loader threads): {it_s * 1e3:.1f} ms; '
+            f'on {card}')
+        say(f'  {label} of it waiting on the loader: {wait_s * 1e3:.1f} ms; '
+            f'on {card}')
+        t0 = time.perf_counter()
+        lines = run_cli(['tools/torch_port_test.py', config,
+                         os.path.join(work, f'iter_{ZOO_ITERS}.pth'),
+                         '--work-dir', os.path.join(tmp, 'test'),
+                         '--cfg-options', *options])
+        tested = json.loads(lines[-1])
+        say(f'  {label} test CLI on iter_{ZOO_ITERS}.pth: '
+            f'{time.perf_counter() - t0:.2f} s; {tested} (val at step '
+            f'{ZOO_ITERS}: {vals[ZOO_ITERS]})')
+        if tested != vals[ZOO_ITERS]:
+            raise AssertionError(f'the test CLI does not reproduce the val at '
+                                 f'step {ZOO_ITERS}')
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 # ---------------------------------------------------------------- phases
 def main() -> int:
     import torch
@@ -1340,12 +1639,19 @@ def main() -> int:
         entry_launches, entry_device = entry_points(model, card, per_forward)
     with phase('9 branch'):
         branch_launches, branch_device, branch_errs = branch_path(card, per_forward)
+    with phase('10 zoo'):
+        zoo_launches, zoo_device, zoo_a_err = zoo_models(card)
+        zoo_entry_points(card)
     for row in rows:
         row['entry_point_launches'] = entry_launches[row['name']]
         row['entry_point_device_launches'] = entry_device[row['name']]
         row['branch_launches'] = branch_launches[row['name']]
         row['branch_device_launches'] = branch_device[row['name']]
         row['branch_max_abs_err'] = branch_errs.get(row['name'])
+        row['zoo_launches'] = zoo_launches[row['name']]
+        row['zoo_device_launches'] = zoo_device[row['name']]
+        row['zoo_max_abs_err'] = (zoo_a_err if row['name'] == 'normalize_image'
+                                  else None)
 
     say(card)
     say(json.dumps({'kernels': rows}))

@@ -10,14 +10,27 @@ The port's modules carry the flax module names, so the mapping is by path:
   LayerNorm ``scale`` -> ``weight``;
 - PReLU ``alpha``, GETB ``relative_position_bias_table`` and biases keep
   their names;
-- the segmentor's ``_backbone``/``_decode_head`` lose the leading underscore.
+- the segmentor's ``_backbone``/``_decode_head`` lose the leading
+  underscore, and its auxiliary heads ``_aux_heads_{i}`` become
+  ``aux_heads.{i}``;
+- the trunk that ``BiSeNetV1`` builds inline, which flax names after its
+  class (``ResNet_0``, ``ResNetV1c_0``, ``ResNetV1d_0``), is ``backbone``.
+
+Every other module keeps its name: ``_Stage``'s ``block{i}``, ResNet's
+``stem``/``stem{i}`` and ``layer{i}_{j}``, DAPPM's ``scale{i}`` /
+``process{i}`` / ``compression`` / ``shortcut``, BiSeNetV1's
+``spatial_path`` / ``arm16`` / ``arm32`` / ``ffm`` / ``gap_conv`` /
+``conv_head16`` / ``conv_head32``, FCNHead's ``conv{i}`` / ``conv_cat`` /
+``cls``.  Any other automatic flax name (``ClassName_{n}``) has no
+counterpart in the port and raises.
 
 A checkpoint file is a ``.npz`` whose keys are ``'/'``-joined paths under a
 ``params/`` or ``batch_stats/`` root (see :func:`save_npz_variables`).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
+import re
+from typing import Any, Dict, Iterator, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -32,8 +45,30 @@ def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tupl
             yield path, value
 
 
+_AUTO_NAME = re.compile(r'[A-Z][A-Za-z0-9]*_\d+')
+_TRUNK = re.compile(r'ResNet(V1[cd])?_0')
+_AUX_HEAD = re.compile(r'aux_heads_(\d+)')
+
+
+def _module_path(path: Tuple[str, ...]) -> List[str]:
+    """The port's names of a flax module path (see the module docstring)."""
+    out = []
+    for part in (p.lstrip('_') for p in path):
+        aux = _AUX_HEAD.fullmatch(part)
+        if aux:
+            out += ['aux_heads', aux.group(1)]
+        elif _TRUNK.fullmatch(part):
+            out.append('backbone')
+        elif _AUTO_NAME.fullmatch(part):
+            raise ValueError(f'no port module for the flax name {part!r} in '
+                             f'{"/".join(path)}')
+        else:
+            out.append(part)
+    return out
+
+
 def _param_entry(path: Tuple[str, ...], value: np.ndarray) -> Tuple[str, np.ndarray]:
-    *mods, leaf = (p.lstrip('_') for p in path)
+    mods, leaf = _module_path(path[:-1]), path[-1]
     if leaf == 'kernel' and value.ndim == 4 or leaf.startswith('spp_dw'):
         value = np.transpose(value, (3, 2, 0, 1))
         leaf = 'weight' if leaf == 'kernel' else leaf
@@ -52,7 +87,7 @@ def flax_to_state_dict(params: Mapping, batch_stats: Optional[Mapping] = None
         name, arr = _param_entry(path, np.asarray(value, np.float32))
         sd[name] = torch.from_numpy(np.ascontiguousarray(arr))
     for path, value in _flatten(batch_stats or {}):
-        *mods, leaf = (p.lstrip('_') for p in path)
+        mods, leaf = _module_path(path[:-1]), path[-1]
         if leaf not in ('mean', 'var'):
             raise ValueError(f'unexpected batch stat {"/".join(path)}')
         sd['.'.join(mods + ['running_' + leaf])] = torch.from_numpy(

@@ -18,8 +18,9 @@ GPU (or the CPU, ``device='cpu'``):
   stacks same-shape images into chunks of ``val_batch_size`` (8; the last
   chunk padded with copies of its last image), runs the eval step
   (:func:`lednet_tpu_torch.engine.make_eval_step`: one CUDA graph per shape
-  on the kernel path, A-D), crops and resizes the logits to each image's
-  ``ori_shape`` (``postprocess_logits``) and feeds :class:`IoUMetric`.
+  on the kernel path, A-D for LED-Net and A for DDRNet and BiSeNetV1),
+  crops and resizes the logits to each image's ``ori_shape``
+  (``postprocess_logits``) and feeds :class:`IoUMetric`.
   A test-time-augmented sample (the ``tta_pipeline``'s ``TestTimeAug``)
   runs each view alone through the same eval step, padded to the bucket;
   its logits are cropped, un-flipped and resized to the original frame, and

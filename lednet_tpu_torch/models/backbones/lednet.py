@@ -3,7 +3,8 @@
 Counterpart of ``lednet_tpu/models/backbones/lednet.py`` :191-344: a stem to
 1/8 with the x1 (1/2) and x2 (1/4) taps, SEAM edge attention, two
 dual-branch stages (CESPB context/spatial branches, GETB, Muti_AFF fusion,
-SEAM injection), and a final stage with SESP context pooling.  Returns
+SEAM injection), and a final stage with SESP context pooling (or, with
+``context_pool='dappm'``, DDRNet's DAPPM).  Returns
 ``(c3_feat, c5_feat, x1, x2)``; ``out_size`` is ceil(in/8) (``lednet.py:199``).
 
 In eval mode on CUDA the stem runs kernel B (stem_conv1, stem_conv2) and
@@ -28,6 +29,7 @@ from lednet_tpu_torch.models.getb import GETBBlock
 from lednet_tpu_torch.models.layers import (BasicBlock, ConvModule,
                                            cached_operands, fold_conv_bn,
                                            module_tensors)
+from lednet_tpu_torch.models.ppm import DAPPM
 from lednet_tpu_torch.models.seam import SEAM
 from lednet_tpu_torch.ops.kernels import basic_pair, stem_convs
 from lednet_tpu_torch.ops.kernels._build import resolve_impl
@@ -42,8 +44,13 @@ class LEDNet(nn.Module):
 
     def __init__(self, in_channels: int = 3, channels: int = 32,
                  ppm_channels: int = 128, align_corners: bool = False,
-                 norm_cfg: Optional[Dict] = None):
+                 norm_cfg: Optional[Dict] = None, context_pool: str = 'sesp'):
+        """``context_pool``: ``'sesp'`` (the paper's final model) or
+        ``'dappm'`` (the DDRNet prototype's pooling, no kernel)."""
         super().__init__()
+        if context_pool not in ('sesp', 'dappm'):
+            raise ValueError(f"context_pool must be 'sesp' or 'dappm', got "
+                             f'{context_pool!r}')
         c = channels
         norm_cfg = norm_cfg or dict(type='BN')
         relu = dict(type='ReLU')
@@ -72,9 +79,14 @@ class LEDNet(nn.Module):
         self.aff2 = MutiAFF(2 * c)
         self.spatial3 = CESPB(2 * c, 4 * c, num_blocks=1, spatial=True)
         self.context3 = CESPB(8 * c, 16 * c, stride=2, num_blocks=1, spatial=False)
-        self.spp = SESP(16 * c, ppm_channels, spatial=False)
-        self.spp_out = (conv(ppm_channels, 4 * c, 1, act_cfg=None)
-                        if ppm_channels != 4 * c else None)
+        self.context_pool = context_pool
+        if context_pool == 'dappm':
+            self.spp = DAPPM(16 * c, ppm_channels, 4 * c, num_scales=5)
+            self.spp_out = None
+        else:
+            self.spp = SESP(16 * c, ppm_channels, spatial=False)
+            self.spp_out = (conv(ppm_channels, 4 * c, 1, act_cfg=None)
+                            if ppm_channels != 4 * c else None)
         self.gltb3 = getb(4 * c)
 
     def module_stem(self, x):
@@ -144,7 +156,7 @@ class LEDNet(nn.Module):
 
         x_s = self.spatial3(F.relu(x_s), impl)                 # 4c @ 1/8
         x_c = self.context3(F.relu(x_c), impl)                 # 16c @ 1/64
-        x_c = self.spp(x_c, impl)
+        x_c = self.spp(x_c) if self.context_pool == 'dappm' else self.spp(x_c, impl)
         if self.spp_out is not None:
             x_c = self.spp_out(x_c)
         x_c = self.gltb3(x_c)

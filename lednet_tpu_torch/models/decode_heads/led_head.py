@@ -1,8 +1,9 @@
-"""LED-Net decode head, NCHW.
+"""LED-Net and DDRNet decode heads, NCHW.
 
 Counterpart of ``lednet_tpu/models/decode_heads/led_head.py`` (``_BaseHead``
 :33, ``_dual_losses`` :55, ``LEDHead`` :72, ``_refine`` :172,
-``loss_by_feat`` :182, ``predict_by_feat`` :203):
+``loss_by_feat`` :182, ``predict_by_feat`` :203, ``DDRHead`` :217).
+``LEDHead``:
 
 - ``head``: pre-act 3x3 ConvModule + BN + ReLU, then ``cls`` on the context
   feature; ``head_x1``/``head_x2``: the same base-head stack mapping the stem
@@ -15,6 +16,13 @@ Counterpart of ``lednet_tpu/models/decode_heads/led_head.py`` (``_BaseHead``
 
 The packed ``_base_head_packed`` of the JAX package is a TPU layout rewrite
 and is not carried over; the port runs the plain ``head_x1`` path.
+
+``DDRHead`` (upstream mmseg's contract, which the JAX package restores):
+``head`` + ``cls`` on the final feature; in training also ``aux_head`` +
+``aux_cls_seg`` on ``temp_context``; ``loss_context`` (losses[0]) and
+``loss_spatial`` (losses[1]) on the logits resized to the label, ``acc_seg``
+on the context logit; predict resizes the context logit to ``size``
+(8x its own when omitted).
 """
 from __future__ import annotations
 
@@ -24,6 +32,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from lednet_tpu_torch.models.decode_heads.base import (ClsSeg, build_losses,
+                                                       resolve_out_channels,
                                                        sem_label)
 from lednet_tpu_torch.models.layers import ConvModule, Norm2d
 from lednet_tpu_torch.models.losses.cross_entropy import accuracy
@@ -139,3 +148,55 @@ class LEDHead(nn.Module):
         if size is None:
             size = (head_x1.shape[-2] * 2, head_x1.shape[-1] * 2)
         return self._refine(x_c, head_x1, head_x2, size)
+
+
+@MODELS.register_module()
+class DDRHead(nn.Module):
+
+    def __init__(self, in_channels: int, channels: int, num_classes: int,
+                 dropout_ratio: float = 0.1, norm_cfg: Optional[Dict] = None,
+                 act_cfg: Optional[Dict] = None, align_corners: bool = False,
+                 ignore_index: int = 255, out_channels: Optional[int] = None,
+                 loss_decode: Optional[Sequence[Dict]] = None,
+                 in_index: int = -1, init_cfg: Optional[Dict] = None):
+        super().__init__()
+        out_ch = resolve_out_channels(num_classes, out_channels)
+        self.align_corners = align_corners
+        self.ignore_index = ignore_index
+        self.losses = _dual_losses(loss_decode)
+        self.head = _BaseHead(in_channels, channels, norm_cfg)
+        self.cls = ClsSeg(channels, out_ch, dropout_ratio)
+        self.aux_head = _BaseHead(in_channels // 2, channels, norm_cfg)
+        self.aux_cls_seg = nn.Conv2d(channels, out_ch, 1)
+
+    def forward(self, inputs, with_aux: bool = True):
+        """inputs = (temp_context, final) or the final feature alone; the
+        context logit, with the spatial (aux) logit when ``with_aux`` and
+        ``temp_context`` is given."""
+        if isinstance(inputs, (tuple, list)):
+            c3_feat, c5_feat = inputs[0], inputs[1]
+        else:
+            c3_feat, c5_feat = None, inputs
+        x_c = self.cls(self.head(c5_feat))
+        if with_aux and c3_feat is not None:
+            return x_c, self.aux_cls_seg(self.aux_head(c3_feat))
+        return x_c
+
+    def loss_by_feat(self, seg_logits, seg_label) -> Dict:
+        seg_label = sem_label(seg_label)
+        size = tuple(seg_label.shape[-2:])
+        ctx, spa = (resize_bilinear(t, size, self.align_corners)
+                    for t in seg_logits)
+        return {
+            'loss_context': self.losses[0](ctx, seg_label,
+                                           ignore_index=self.ignore_index),
+            'loss_spatial': self.losses[1](spa, seg_label,
+                                           ignore_index=self.ignore_index),
+            'acc_seg': accuracy(ctx, seg_label, self.ignore_index),
+        }
+
+    def predict_by_feat(self, seg_logits, size=None):
+        logit = seg_logits[0] if isinstance(seg_logits, (tuple, list)) else seg_logits
+        if size is None:
+            size = (logit.shape[-2] * 8, logit.shape[-1] * 8)
+        return resize_bilinear(logit, size, self.align_corners)

@@ -1,4 +1,5 @@
-"""Core NN bricks: PReLU, BatchNorm, Norm2d, ConvModule, BasicBlock.
+"""Core NN bricks: PReLU, BatchNorm, Norm2d, ConvModule, BasicBlock,
+Bottleneck.
 
 Counterpart of ``lednet_tpu/models/layers.py``.  Modules here take and return
 NCHW tensors (torch's layout); submodule and parameter names follow the flax
@@ -8,7 +9,7 @@ module tree (``conv``, ``norm.bn``, ``act.alpha``), so that
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn as nn
@@ -41,7 +42,26 @@ def build_activation(act_cfg: Optional[Dict]) -> nn.Module:
 class BatchNorm(nn.BatchNorm2d):
     """BatchNorm2d.  torch updates ``running_var`` with the unbiased batch
     variance, which is the semantics ``lednet_tpu``'s own BatchNorm exists to
-    reproduce; eval mode normalizes with the running stats."""
+    reproduce; eval mode normalizes with the running stats.
+
+    With one value per channel in training (a global pool's map at batch 1:
+    DAPPM's last branch, BiSeNetV1's attention) torch refuses; the JAX
+    package normalizes it to the bias and updates the running variance with
+    the variance 0 (its Bessel factor is ``n / max(n - 1, 1)``), and so does
+    this module."""
+
+    def forward(self, x):
+        if not (self.training and x.numel() == x.shape[1]):
+            return super().forward(x)
+        mean = x.mean((0, 2, 3))
+        var = (x - mean.view(1, -1, 1, 1)).square().mean((0, 2, 3))
+        with torch.no_grad():
+            self.running_mean.lerp_(mean.detach(), self.momentum)
+            self.running_var.lerp_(var.detach(), self.momentum)
+            self.num_batches_tracked += 1
+        scale = self.weight * torch.rsqrt(var + self.eps)
+        return ((x - mean.view(1, -1, 1, 1)) * scale.view(1, -1, 1, 1)
+                + self.bias.view(1, -1, 1, 1))
 
 
 class Norm2d(nn.Module):
@@ -62,16 +82,21 @@ class Norm2d(nn.Module):
 
 
 class ConvModule(nn.Module):
-    """conv + norm + act with a configurable ``order``."""
+    """conv + norm + act with a configurable ``order``.  ``bias='auto'``
+    gives the conv a bias only without a norm (mmcv's rule); a bool sets it.
+    A norm before the conv (the pre-activation order) normalizes the input
+    width."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
-                 stride: int = 1, padding: int = 0,
+                 stride: int = 1, padding: int = 0, dilation: int = 1,
+                 groups: int = 1, bias: Union[bool, str] = 'auto',
                  norm_cfg: Optional[Dict] = None, act_cfg: Optional[Dict] = None,
                  order: Tuple[str, ...] = ('conv', 'norm', 'act')):
         super().__init__()
         self.order = tuple(order)
+        use_bias = bias if isinstance(bias, bool) else norm_cfg is None
         self.conv = nn.Conv2d(in_channels, out_channels, kernel_size, stride,
-                              padding, bias=norm_cfg is None)
+                              padding, dilation, groups, bias=use_bias)
         norm_after_conv = self.order.index('norm') > self.order.index('conv')
         self.norm = (Norm2d(norm_cfg, out_channels if norm_after_conv
                             else in_channels) if norm_cfg is not None else None)
@@ -90,6 +115,7 @@ class ConvModule(nn.Module):
 
 class BasicBlock(nn.Module):
     """ResNet basic block."""
+    expansion = 1
 
     def __init__(self, in_channels: int, channels: int, stride: int = 1,
                  downsample: bool = False, norm_cfg: Optional[Dict] = None,
@@ -111,6 +137,41 @@ class BasicBlock(nn.Module):
 
     def forward(self, x):
         out = self.conv2(self.conv1(x))
+        if self.downsample_conv is not None:
+            x = self.downsample_norm(self.downsample_conv(x))
+        out = out + x
+        return F.relu(out) if self.act_out else out
+
+
+class Bottleneck(nn.Module):
+    """ResNet bottleneck block of expansion 2 (DDRNet's): 1x1, 3x3 with the
+    stride, 1x1 to ``2 * channels``; no output ReLU unless ``act_out``.
+    Counterpart of ``lednet_tpu/models/layers.py:243``."""
+    expansion = 2
+
+    def __init__(self, in_channels: int, channels: int, stride: int = 1,
+                 downsample: bool = False, norm_cfg: Optional[Dict] = None,
+                 act_out: bool = False):
+        super().__init__()
+        norm_cfg = norm_cfg or dict(type='BN')
+        relu = dict(type='ReLU')
+        out_channels = channels * self.expansion
+        self.act_out = act_out
+        self.conv1 = ConvModule(in_channels, channels, 1, norm_cfg=norm_cfg,
+                                act_cfg=relu)
+        self.conv2 = ConvModule(channels, channels, 3, stride=stride,
+                                padding=1, norm_cfg=norm_cfg, act_cfg=relu)
+        self.conv3 = ConvModule(channels, out_channels, 1, norm_cfg=norm_cfg,
+                                act_cfg=None)
+        if downsample:
+            self.downsample_conv = nn.Conv2d(in_channels, out_channels, 1,
+                                             stride, bias=False)
+            self.downsample_norm = Norm2d(norm_cfg, out_channels)
+        else:
+            self.downsample_conv = None
+
+    def forward(self, x):
+        out = self.conv3(self.conv2(self.conv1(x)))
         if self.downsample_conv is not None:
             x = self.downsample_norm(self.downsample_conv(x))
         out = out + x

@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Where the time of the PyTorch port's forward goes, on one GPU.
 
-    python3 tools/torch_port_profile.py [--size 1024] [--iters 20]
+    python3 tools/torch_port_profile.py [--size 1024] [--iters 20] [--config CFG]
 
-Builds the flagship LED-Net (``configs/LED_Net/lednet_80k_cityscapes-1024x1024.py``)
+Builds the flagship LED-Net (``configs/LED_Net/lednet_80k_cityscapes-1024x1024.py``,
+or the model of ``--config``: DDRNet and BiSeNetV1 run kernel A alone and
+skip the kernel E readings below)
 with seeded random weights through ``lednet_tpu_torch.apis.init_model``, and
 profiles bs=1 forwards (preprocess + ``predict``) with ``torch.profiler``, once
 through the CUDA kernels and once through the plain module forms.  Prints,
@@ -246,6 +248,8 @@ def sesp_sweep(model, x):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument('--config', default=CONFIG,
+                    help='the model to profile (default: the flagship LED-Net)')
     ap.add_argument('--size', type=int, default=1024)
     ap.add_argument('--iters', type=int, default=20)
     ap.add_argument('--graph', action='store_true',
@@ -271,7 +275,7 @@ def main() -> int:
                           text=True, timeout=60).stdout.strip()
     print(card, flush=True)
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    model = init_model(os.path.join(repo, CONFIG), device='cuda',
+    model = init_model(os.path.join(repo, args.config), device='cuda',
                        generator=torch.Generator().manual_seed(0))
     img = np.random.default_rng(0).integers(0, 256, (1, args.size, args.size, 3),
                                             dtype=np.uint8)
@@ -307,11 +311,12 @@ def main() -> int:
             for t in r[title]:
                 print(f"    {t['ms_per_forward']:8.4f} ms  x{t['calls_per_forward']:5.1f}  "
                       f"{t['name']}", flush=True)
-    with torch.inference_mode():
-        report['sesp_pyramid'] = e = pyramid_device_time(model, x, args.iters)
-    print(f"[sesp_pyramid] {e['ms_per_launch']:.4f} ms device time per launch "
-          f"over {e['launches']} launches at {e['shapes']} pyramid shapes",
-          flush=True)
+    if args.config == CONFIG:
+        with torch.inference_mode():
+            report['sesp_pyramid'] = e = pyramid_device_time(model, x, args.iters)
+        print(f"[sesp_pyramid] {e['ms_per_launch']:.4f} ms device time per "
+              f"launch over {e['launches']} launches at {e['shapes']} pyramid "
+              f"shapes", flush=True)
     if args.ops:
         with open(args.ops, 'w') as f:
             json.dump(dict(card=card, size=args.size, paths=ops), f, indent=1)
