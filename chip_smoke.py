@@ -129,11 +129,13 @@ printing one flushed line with its seconds:
    once, eager and replayed; each config's train step at its batch (6, 4)
    at 1024x1024, 5 timed steps after a warm-up, peak memory; one step at 2
    x 256x256 on the card (cuDNN off) against the CPU's within phase 6's
-   bounds in float64 (in float32 these two models miss them even CPU
-   against CPU: the float32 distances are printed beside the CPU's own
-   float32-to-float64 distance), BiSeNetV1 with dropout 0 in every head
-   for this comparison only (two RNG streams cannot drop the same units);
-   DDRNet-23-slim
+   bounds in float64, and in float32 with the step's discrete decisions
+   (OHEM's kept pixels, ReLU signs, max pool choices) pinned to the CPU
+   float64 step's, its weights within phase 6's bounds of float64 (the
+   loss and BatchNorm stats printed beside the CPU float32 step's own
+   distance; the elements each float32 step decides otherwise, unpinned,
+   counted), BiSeNetV1 with dropout 0 in every head for this comparison
+   only (two RNG streams cannot drop the same units); DDRNet-23-slim
    through ``tools/torch_port_train.py`` (20 steps, one val) on a tree of 6
    + 2 2048x1024 frames, its iteration time and loader wait from the log,
    and ``tools/torch_port_test.py`` on ``iter_20.pth`` equal to that val.
@@ -503,6 +505,74 @@ def hold_train(name, card, cpu, bounds):
         ', '.join(bounds))
     if not (dl <= TOL_TRAIN_LOSS and all(worst[b] <= 1.0 for b in bounds)):
         raise AssertionError(f'{name}: card and CPU disagree')
+
+
+@contextlib.contextmanager
+def decisions(kept, flips=None, pin=False):
+    """A train step's discrete decisions: the pixels each OHEM loss keeps,
+    the sign of each ReLU's input, each max pool's choice.  Inside, with
+    ``flips`` None, each is appended to ``kept`` in call order; else
+    ``flips[kind]`` counts where the step decides otherwise than the next of
+    ``kept``, and with ``pin`` the step follows ``kept``."""
+    import torch
+    import torch.nn.functional as F
+    from lednet_tpu_torch.models.losses.cross_entropy import OhemCrossEntropy
+    threshold, relu, max_pool = OhemCrossEntropy.threshold, F.relu, F.max_pool2d
+    recorded = iter(list(kept))
+
+    def decide(kind, own):
+        if flips is None:
+            kept.append(own.cpu())
+            return own
+        ref = next(recorded).to(own.device)
+        flips[kind] = flips.get(kind, 0) + int((own != ref).sum())
+        return ref if pin else own
+
+    def ohem(self, logits, labels, ignore_index=None):
+        t, valid, p_gt = threshold(self, logits, labels, ignore_index)
+        keep = decide('ohem', valid & (p_gt < t))
+        # p_gt 0 below the threshold 0.5 keeps exactly ``keep``'s pixels
+        return (t.new_tensor(0.5), valid,
+                torch.where(keep, 0.0, 1.0).to(p_gt.dtype))
+
+    def rectify(x, inplace=False):
+        return x * decide('relu', x > 0).to(x.dtype)
+
+    def pool(x, kernel_size, stride=None, padding=0, dilation=1,
+             ceil_mode=False, return_indices=False):
+        out, idx = max_pool(x, kernel_size, stride, padding, dilation,
+                            ceil_mode, return_indices=True)
+        idx = decide('max_pool', idx)
+        out = x.flatten(2).gather(2, idx.flatten(2)).view_as(out)
+        return (out, idx) if return_indices else out
+    OhemCrossEntropy.threshold, F.relu, F.max_pool2d = ohem, rectify, pool
+    try:
+        yield
+    finally:
+        OhemCrossEntropy.threshold, F.relu, F.max_pool2d = (threshold, relu,
+                                                            max_pool)
+
+
+def hold_float32(name, card, cpu, exact):
+    """Hold a float32 train step on the card, its decisions pinned, to the
+    float64 one: every weight within TOL_TRAIN_WEIGHT.  The loss and the
+    BatchNorm stats, forward sums of large activations, are printed against
+    their bounds beside the CPU float32 step's own distance from float64."""
+    lines = {}
+    for who, run in (('the card', card), ('the CPU', cpu)):
+        dl, _, _, shares = train_distance(run, exact)
+        lines[who] = (dl, max(r for r, k in shares if 'running' not in k),
+                      max(r for r, k in shares if 'running' in k), shares)
+    _, weights, _, shares = lines['the card']
+    say(f'  {name}, float32 vs the CPU float64, as shares of phase 6\'s '
+        'bounds: ' + '; '.join(
+            f'{who} |loss diff| {v[0]:.3e} (tol {TOL_TRAIN_LOSS:g}), weights '
+            f'{v[1]:.3f}, BatchNorm stats {v[2]:.3f}' for who, v in
+            lines.items()) + '; the card\'s nearest: ' + ', '.join(
+            f'{k} {r:.3f}' for r, k in shares[:3]) + '; held: weights')
+    if weights > 1.0:
+        raise AssertionError(f'{name}: the card\'s float32 weights stray '
+                             'from float64')
 
 
 def randomize_norms(model, gen):
@@ -1213,32 +1283,47 @@ def zoo_models(card):
             note = ', dropout 0 in every head for this comparison only'
         cfg.merge_from_dict(extra)
         s_imgs, s_lbl = train_batch(np.random.default_rng(SEED + 11), 2, 256)
-        # held in float64: in float32 these steps miss phase 6's bounds even
-        # CPU against CPU (the BatchNorms on global pools see 2 values per
-        # channel at batch 2), so the float32 pairs are printed beside the
-        # CPU's own float32 distance from float64
-        runs = {}
-        for dtype in (torch.float64, torch.float32):
-            runs['cpu', dtype] = train_once(cfg, 'cpu', s_imgs, s_lbl,
-                                            SEED + 11, dtype)
-            with torch.backends.cudnn.flags(enabled=False):
-                runs['cuda', dtype] = train_once(cfg, 'cuda', s_imgs, s_lbl,
-                                                 SEED + 11, dtype)
+        # float64 holds the step's arithmetic to phase 6's bounds.  A float32
+        # step is held with its discrete decisions (OHEM's kept pixels, ReLU
+        # signs, max pool choices) pinned to the CPU float64 step's: a value
+        # within rounding of a threshold or kink decides otherwise, a jump
+        # of the step, not an error.  Its weights are held to float64 within
+        # phase 6's bounds
+        runs, kept, flips = {}, [], {}
+        with decisions(kept):
+            runs['cpu', torch.float64] = train_once(cfg, 'cpu', s_imgs, s_lbl,
+                                                    SEED + 11, torch.float64)
+        for dev, dtype, pin in (('cpu', torch.float32, True),
+                                ('cuda', torch.float64, False),
+                                ('cuda', torch.float32, True),
+                                ('cuda', torch.float32, False)):
+            n = flips[dev, dtype, pin] = {}
+            with torch.backends.cudnn.flags(enabled=False), \
+                    decisions(kept, n, pin):
+                runs[dev, dtype, pin] = train_once(cfg, dev, s_imgs, s_lbl,
+                                                   SEED + 11, dtype)
+        cpu64 = runs['cpu', torch.float64]
+        say(f'  {label} one step, 2x256x256: of {len(kept)} calls that decide '
+            '(OHEM, ReLU, max pool), elements decided otherwise than in the '
+            'CPU float64 step: ' + '; '.join(
+                f'{which} {flips[key]}' for which, key in (
+                    ('the CPU float32', ('cpu', torch.float32, True)),
+                    ('the card float64', ('cuda', torch.float64, False)),
+                    ('the card float32', ('cuda', torch.float32, False)))))
         hold_train(f'{label} one step, 2x256x256, float64, the card (PyTorch\'s '
-                   f'own CUDA convs) vs the CPU{note}', runs['cuda', torch.float64],
-                   runs['cpu', torch.float64], ('weights', 'bn_stats'))
-        for name, run, ref in (
-                ('float32, the card vs the CPU', ('cuda', torch.float32),
-                 ('cpu', torch.float32)),
-                ('the CPU, float32 vs float64', ('cpu', torch.float32),
-                 ('cpu', torch.float64)),
-                ('the card float32 vs the CPU float64', ('cuda', torch.float32),
-                 ('cpu', torch.float64))):
-            dl, dw, ds, shares = train_distance(runs[run], runs[ref])
-            say(f'  {label} one step, 2x256x256, {name} (not held): |loss '
-                f'diff| {dl:.3e}, max |diff| weights {dw:.3e}, BatchNorm stats '
-                f'{ds:.3e}; nearest their bound: ' +
-                ', '.join(f'{k} {r:.3f}' for r, k in shares[:3]))
+                   f'own CUDA convs) vs the CPU{note}',
+                   runs['cuda', torch.float64, False], cpu64,
+                   ('weights', 'bn_stats'))
+        dl, dw, ds, shares = train_distance(runs['cuda', torch.float32, False],
+                                            cpu64)
+        say(f'  {label} one step, 2x256x256, the card float32 vs the CPU '
+            f'float64, its own decisions (not held): |loss diff| '
+            f'{dl:.3e}, max |diff| weights {dw:.3e}, BatchNorm stats {ds:.3e}; '
+            'nearest their bound: ' + ', '.join(f'{k} {r:.3f}'
+                                                for r, k in shares[:3]))
+        hold_float32(f'{label} one step, 2x256x256, decisions pinned{note}',
+                     runs['cuda', torch.float32, True],
+                     runs['cpu', torch.float32, True], cpu64)
     return launches, device, max(a_errs)
 
 

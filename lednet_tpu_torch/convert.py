@@ -14,7 +14,7 @@ The port's modules carry the flax module names, so the mapping is by path:
   underscore, and its auxiliary heads ``_aux_heads_{i}`` become
   ``aux_heads.{i}``;
 - the trunk that ``BiSeNetV1`` builds inline, which flax names after its
-  class (``ResNet_0``, ``ResNetV1c_0``, ``ResNetV1d_0``), is ``backbone``.
+  class (``ResNet_0``, ``ResNetV1c_0``), is ``backbone``.
 
 Every other module keeps its name: ``_Stage``'s ``block{i}``, ResNet's
 ``stem``/``stem{i}`` and ``layer{i}_{j}``, DAPPM's ``scale{i}`` /
@@ -46,7 +46,7 @@ def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tupl
 
 
 _AUTO_NAME = re.compile(r'[A-Z][A-Za-z0-9]*_\d+')
-_TRUNK = re.compile(r'ResNet(V1[cd])?_0')
+_TRUNK = re.compile(r'ResNet(V1c)?_0')
 _AUX_HEAD = re.compile(r'aux_heads_(\d+)')
 
 

@@ -79,7 +79,6 @@ class LEDNet(nn.Module):
         self.aff2 = MutiAFF(2 * c)
         self.spatial3 = CESPB(2 * c, 4 * c, num_blocks=1, spatial=True)
         self.context3 = CESPB(8 * c, 16 * c, stride=2, num_blocks=1, spatial=False)
-        self.context_pool = context_pool
         if context_pool == 'dappm':
             self.spp = DAPPM(16 * c, ppm_channels, 4 * c, num_scales=5)
             self.spp_out = None
@@ -156,7 +155,7 @@ class LEDNet(nn.Module):
 
         x_s = self.spatial3(F.relu(x_s), impl)                 # 4c @ 1/8
         x_c = self.context3(F.relu(x_c), impl)                 # 16c @ 1/64
-        x_c = self.spp(x_c) if self.context_pool == 'dappm' else self.spp(x_c, impl)
+        x_c = self.spp(x_c, impl)
         if self.spp_out is not None:
             x_c = self.spp_out(x_c)
         x_c = self.gltb3(x_c)

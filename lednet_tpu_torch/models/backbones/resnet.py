@@ -1,13 +1,13 @@
 """ResNet backbones (ResNet, ResNetV1c), NCHW.
 
 Counterpart of ``lednet_tpu/models/backbones/resnet.py`` (``_ResBasicBlock``
-:22, ``_ResBottleneck`` :62, ``ResNet`` :105): depths 18/34 (basic blocks)
-and 50/101/152 (bottlenecks of expansion 4 with the stride on the 3x3 conv,
-the ``style='pytorch'`` placement), a 7x7/s2 stem or the three-conv deep stem
-(ResNetV1c), a 3x3/s2 max pool padded with ``-inf``, per-stage ``strides``
-and ``dilations`` (``contract_dilation`` halves a stage's first dilation),
-and ``out_indices``.  Blocks are named ``layer{stage}_{block}`` as in the
-flax tree.
+:22, ``_ResBottleneck`` :62, ``ResNet`` :105): depths 18/34 (``BasicBlock``)
+and 50/101/152 (``Bottleneck`` of expansion 4 with the output ReLU and the
+stride on the 3x3 conv, the ``style='pytorch'`` placement), a 7x7/s2 stem
+or the three-conv deep stem (ResNetV1c), a 3x3/s2 max pool padded with
+``-inf``, per-stage ``strides`` and ``dilations`` (``contract_dilation``
+halves a stage's first dilation), and ``out_indices``.  Blocks are named
+``layer{stage}_{block}`` as in the flax tree.
 
 ``style``, ``frozen_stages``, ``norm_eval``, ``with_cp``, ``pretrained`` and
 ``init_cfg`` are accepted for the configs and, as in the JAX package, have no
@@ -20,80 +20,25 @@ from __future__ import annotations
 from typing import Dict, Optional, Sequence
 
 import torch.nn as nn
-import torch.nn.functional as F
 
-from lednet_tpu_torch.models.layers import ConvModule, Norm2d
+from lednet_tpu_torch.models.layers import BasicBlock, Bottleneck, ConvModule
 from lednet_tpu_torch.ops.pool import max_pool2d
 from lednet_tpu_torch.registry import MODELS
 
 
-class _ResBlock(nn.Module):
-    """What both ResNet blocks share: the shortcut of a block that changes
-    shape (``downsample_conv`` and ``downsample_norm``) and the output
-    ReLU."""
-
-    def _shortcut(self, in_channels, out_channels, stride, downsample,
-                  norm_cfg):
-        if downsample:
-            self.downsample_conv = nn.Conv2d(in_channels, out_channels, 1,
-                                             stride, bias=False)
-            self.downsample_norm = Norm2d(norm_cfg, out_channels)
-        else:
-            self.downsample_conv = None
-
-    def _out(self, out, x):
-        if self.downsample_conv is not None:
-            x = self.downsample_norm(self.downsample_conv(x))
-        return F.relu(out + x)
-
-
-class _ResBasicBlock(_ResBlock):
-    expansion = 1
-
-    def __init__(self, in_channels: int, channels: int, stride: int = 1,
-                 dilation: int = 1, downsample: bool = False,
-                 norm_cfg: Optional[Dict] = None):
-        super().__init__()
-        norm_cfg = norm_cfg or dict(type='BN')
-        self.conv1 = ConvModule(in_channels, channels, 3, stride=stride,
-                                padding=dilation, dilation=dilation,
-                                norm_cfg=norm_cfg, act_cfg=dict(type='ReLU'))
-        self.conv2 = ConvModule(channels, channels, 3, padding=1,
-                                norm_cfg=norm_cfg, act_cfg=None)
-        self._shortcut(in_channels, channels, stride, downsample, norm_cfg)
-
-    def forward(self, x):
-        return self._out(self.conv2(self.conv1(x)), x)
-
-
-class _ResBottleneck(_ResBlock):
+class _ResBottleneck(Bottleneck):
+    """ResNet's bottleneck: expansion 4 and the output ReLU."""
     expansion = 4
 
-    def __init__(self, in_channels: int, channels: int, stride: int = 1,
-                 dilation: int = 1, downsample: bool = False,
-                 norm_cfg: Optional[Dict] = None):
-        super().__init__()
-        norm_cfg = norm_cfg or dict(type='BN')
-        relu = dict(type='ReLU')
-        self.conv1 = ConvModule(in_channels, channels, 1, norm_cfg=norm_cfg,
-                                act_cfg=relu)
-        self.conv2 = ConvModule(channels, channels, 3, stride=stride,
-                                padding=dilation, dilation=dilation,
-                                norm_cfg=norm_cfg, act_cfg=relu)
-        self.conv3 = ConvModule(channels, channels * self.expansion, 1,
-                                norm_cfg=norm_cfg, act_cfg=None)
-        self._shortcut(in_channels, channels * self.expansion, stride,
-                       downsample, norm_cfg)
-
-    def forward(self, x):
-        return self._out(self.conv3(self.conv2(self.conv1(x))), x)
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, act_out=True, **kwargs)
 
 
 @MODELS.register_module()
 class ResNet(nn.Module):
     arch_settings = {
-        18: (_ResBasicBlock, (2, 2, 2, 2)),
-        34: (_ResBasicBlock, (3, 4, 6, 3)),
+        18: (BasicBlock, (2, 2, 2, 2)),
+        34: (BasicBlock, (3, 4, 6, 3)),
         50: (_ResBottleneck, (3, 4, 6, 3)),
         101: (_ResBottleneck, (3, 4, 23, 3)),
         152: (_ResBottleneck, (3, 8, 36, 3)),

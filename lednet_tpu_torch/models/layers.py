@@ -89,14 +89,14 @@ class ConvModule(nn.Module):
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int = 1, padding: int = 0, dilation: int = 1,
-                 groups: int = 1, bias: Union[bool, str] = 'auto',
+                 bias: Union[bool, str] = 'auto',
                  norm_cfg: Optional[Dict] = None, act_cfg: Optional[Dict] = None,
                  order: Tuple[str, ...] = ('conv', 'norm', 'act')):
         super().__init__()
         self.order = tuple(order)
         use_bias = bias if isinstance(bias, bool) else norm_cfg is None
         self.conv = nn.Conv2d(in_channels, out_channels, kernel_size, stride,
-                              padding, dilation, groups, bias=use_bias)
+                              padding, dilation, bias=use_bias)
         norm_after_conv = self.order.index('norm') > self.order.index('conv')
         self.norm = (Norm2d(norm_cfg, out_channels if norm_after_conv
                             else in_channels) if norm_cfg is not None else None)
@@ -114,18 +114,19 @@ class ConvModule(nn.Module):
 
 
 class BasicBlock(nn.Module):
-    """ResNet basic block."""
+    """ResNet basic block; ``dilation`` dilates the first conv (ResNet's
+    ``_ResBasicBlock``, ``lednet_tpu/models/backbones/resnet.py:22``)."""
     expansion = 1
 
     def __init__(self, in_channels: int, channels: int, stride: int = 1,
                  downsample: bool = False, norm_cfg: Optional[Dict] = None,
-                 act_out: bool = True):
+                 act_out: bool = True, dilation: int = 1):
         super().__init__()
         norm_cfg = norm_cfg or dict(type='BN')
         self.act_out = act_out
         self.conv1 = ConvModule(in_channels, channels, 3, stride=stride,
-                                padding=1, norm_cfg=norm_cfg,
-                                act_cfg=dict(type='ReLU'))
+                                padding=dilation, dilation=dilation,
+                                norm_cfg=norm_cfg, act_cfg=dict(type='ReLU'))
         self.conv2 = ConvModule(channels, channels, 3, padding=1,
                                 norm_cfg=norm_cfg, act_cfg=None)
         if downsample:
@@ -145,13 +146,13 @@ class BasicBlock(nn.Module):
 
 class Bottleneck(nn.Module):
     """ResNet bottleneck block of expansion 2 (DDRNet's): 1x1, 3x3 with the
-    stride, 1x1 to ``2 * channels``; no output ReLU unless ``act_out``.
-    Counterpart of ``lednet_tpu/models/layers.py:243``."""
+    stride and ``dilation``, 1x1 to ``expansion * channels``; no output ReLU
+    unless ``act_out``.  Counterpart of ``lednet_tpu/models/layers.py:243``."""
     expansion = 2
 
     def __init__(self, in_channels: int, channels: int, stride: int = 1,
                  downsample: bool = False, norm_cfg: Optional[Dict] = None,
-                 act_out: bool = False):
+                 act_out: bool = False, dilation: int = 1):
         super().__init__()
         norm_cfg = norm_cfg or dict(type='BN')
         relu = dict(type='ReLU')
@@ -160,7 +161,8 @@ class Bottleneck(nn.Module):
         self.conv1 = ConvModule(in_channels, channels, 1, norm_cfg=norm_cfg,
                                 act_cfg=relu)
         self.conv2 = ConvModule(channels, channels, 3, stride=stride,
-                                padding=1, norm_cfg=norm_cfg, act_cfg=relu)
+                                padding=dilation, dilation=dilation,
+                                norm_cfg=norm_cfg, act_cfg=relu)
         self.conv3 = ConvModule(channels, out_channels, 1, norm_cfg=norm_cfg,
                                 act_cfg=None)
         if downsample:

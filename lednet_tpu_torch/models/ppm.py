@@ -6,13 +6,14 @@ pre-activation conv of the input; branches 1..n-2 average-pool it (5/2/2,
 the last branch pools globally.  Each pooled branch is upsampled bilinearly
 (``align_corners=False``) and fused hierarchically,
 ``feats[i] = process{i-1}(up(branch_i) + feats[i-1])``; the output is
-``compression(concat(feats)) + shortcut(x)``.  Every conv runs in the order
-``('norm', 'act', 'conv')`` with BatchNorm momentum 0.1, bias-free unless
-``conv_bias``.  ``PAPPM`` (:88) is later work (PIDNet).
+``compression(concat(feats)) + shortcut(x)``.  Every conv runs bias-free in
+the order ``('norm', 'act', 'conv')`` with BatchNorm momentum 0.1 and ReLU,
+the JAX defaults that every caller keeps.  ``PAPPM`` (:88) is later work
+(PIDNet).
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+from typing import Optional
 
 import torch
 import torch.nn as nn
@@ -22,26 +23,21 @@ from lednet_tpu_torch.ops.pool import avg_pool2d, global_avg_pool
 from lednet_tpu_torch.ops.resize import resize_bilinear
 
 _PRE_ACT = ('norm', 'act', 'conv')
+_NORM = dict(type='BN', momentum=0.1)
+_ACT = dict(type='ReLU')
+_POOLS = ((5, 2, 2), (9, 4, 4), (17, 8, 8))    # (kernel, stride, padding)
 
 
 class DAPPM(nn.Module):
 
     def __init__(self, in_channels: int, branch_channels: int,
-                 out_channels: int, num_scales: int,
-                 kernel_sizes: Sequence[int] = (5, 9, 17),
-                 strides: Sequence[int] = (2, 4, 8),
-                 paddings: Sequence[int] = (2, 4, 8),
-                 norm_cfg: Optional[Dict] = None,
-                 act_cfg: Optional[Dict] = None, conv_bias: bool = False):
+                 out_channels: int, num_scales: int):
         super().__init__()
-        norm_cfg = norm_cfg or dict(type='BN', momentum=0.1)
-        act_cfg = act_cfg or dict(type='ReLU')
         self.num_scales = num_scales
-        self.pools = list(zip(kernel_sizes, strides, paddings))
 
         def conv(cin, cout, k, **kw):
-            return ConvModule(cin, cout, k, norm_cfg=norm_cfg, act_cfg=act_cfg,
-                              order=_PRE_ACT, bias=conv_bias, **kw)
+            return ConvModule(cin, cout, k, norm_cfg=_NORM, act_cfg=_ACT,
+                              order=_PRE_ACT, bias=False, **kw)
         for i in range(num_scales):
             self.add_module(f'scale{i}', conv(in_channels, branch_channels, 1))
         for i in range(num_scales - 1):
@@ -50,12 +46,13 @@ class DAPPM(nn.Module):
         self.compression = conv(branch_channels * num_scales, out_channels, 1)
         self.shortcut = conv(in_channels, out_channels, 1)
 
-    def forward(self, x):
+    def forward(self, x, impl: Optional[str] = None):
+        """``impl`` is accepted for the backbones' call and unused."""
         size = x.shape[-2:]
         feats = [self.scale0(x)]
         for i in range(1, self.num_scales):
             if i < self.num_scales - 1:
-                pooled = avg_pool2d(x, *self.pools[i - 1])
+                pooled = avg_pool2d(x, *_POOLS[i - 1])
             else:
                 pooled = global_avg_pool(x)
             branch = getattr(self, f'scale{i}')(pooled)

@@ -542,3 +542,65 @@ def test_ddrnet_runner_val_matches_jax(tmp_path, one_thread):
     assert 1.0 < want['aAcc'] < 95.0 and want['mIoU'] > 0.1   # not degenerate
     for key in ('aAcc', 'mIoU'):
         assert abs(got[key] - want[key]) <= METRIC_TOL, (key, got, want)
+
+
+def _decide(kind, x, labels):
+    """The output of the op that decides ``kind``."""
+    import torch.nn.functional as F
+    from lednet_tpu_torch.models.losses import OhemCrossEntropy
+    from lednet_tpu_torch.ops.pool import max_pool2d
+    if kind == 'ohem':
+        return OhemCrossEntropy(thres=0.7, min_kept=10)(x, labels)
+    return F.relu(x) if kind == 'relu' else max_pool2d(x, 3, 2, 1)
+
+
+def _decision(kind, x, labels):
+    """The decision ``_decide`` makes on ``x``."""
+    import torch.nn.functional as F
+    from lednet_tpu_torch.models.losses import OhemCrossEntropy
+    if kind == 'ohem':
+        t, valid, p_gt = OhemCrossEntropy(thres=0.7, min_kept=10).threshold(
+            x, labels)
+        return valid & (p_gt < t)
+    if kind == 'relu':
+        return x > 0
+    return F.max_pool2d(x, 3, 2, 1, return_indices=True)[1]
+
+
+@pytest.mark.parametrize('kind', ['ohem', 'relu', 'max_pool'])
+def test_chip_smoke_pins_decisions(kind):
+    """``chip_smoke.decisions``, which phase 10 uses to hold a float32 train
+    step: it records each call's decision (OHEM's kept pixels, the ReLU
+    mask, the max pool's choice), counts the elements where a later call
+    decides otherwise, and with ``pin`` follows the recorded decision."""
+    import sys
+    sys.path.insert(0, REPO)
+    import chip_smoke
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.normal(0, 2, (2, 5, 6, 7)).astype(np.float32))
+    labels = torch.from_numpy(rng.integers(0, 5, (2, 6, 7)))
+    labels[0, 0, :3] = 255
+    ref = _decide(kind, x, labels)
+    kept = []
+    with chip_smoke.decisions(kept):
+        got = _decide(kind, x, labels)
+    assert len(kept) == 1 and torch.equal(kept[0], _decision(kind, x, labels))
+    torch.testing.assert_close(got, ref, rtol=0, atol=0)
+    moved = x + torch.from_numpy(rng.normal(0, 1, x.shape).astype(np.float32))
+    own_out, own = _decide(kind, moved, labels), _decision(kind, moved, labels)
+    if kind == 'ohem':
+        pix = torch.nn.functional.cross_entropy(moved, labels.clamp_max(4),
+                                                reduction='none')
+        pinned = pix[kept[0]].mean()
+    elif kind == 'relu':
+        pinned = moved * kept[0]
+    else:
+        pinned = moved.flatten(2).gather(2, kept[0].flatten(2)).view_as(own_out)
+    for pin in (False, True):
+        flips = {}
+        with chip_smoke.decisions(kept, flips, pin):
+            got = _decide(kind, moved, labels)
+        assert flips[kind] == int((own != kept[0]).sum()) > 0
+        torch.testing.assert_close(got, pinned if pin else own_out,
+                                   rtol=1e-6, atol=0)
+    torch.testing.assert_close(_decide(kind, x, labels), ref, rtol=0, atol=0)

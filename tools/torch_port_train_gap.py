@@ -28,6 +28,16 @@ measures one conv's weight gradient on the card in float32 against float64
 input, N(0,1) output gradient made zero-mean per channel, as BatchNorm's
 backward makes it), with cuDNN and with PyTorch's own convs, as a multiple
 of float32's unit roundoff times the largest sum of |terms|.
+
+``--grad-trace CONFIG`` instead runs one step of CONFIG (2 seeded images
+of size x size, the first seed, dropout 0 in every head) in float64 on the
+CPU, then in float32 on the CPU and on the card (cuDNN off) with their discrete
+decisions (OHEM, ReLU, max pool) pinned to the float64 step's, as
+``chip_smoke.decisions`` pins them, and
+prints, in the order the float64 backward reaches them, each leaf module's
+output and input gradient and each parameter's gradient as the float32
+runs' largest error relative to the float64 one's largest value; the whole
+table goes to ``chiprun_out/grad_trace.json``.
 """
 import argparse
 import json
@@ -90,6 +100,83 @@ def conv_probe():
     return out
 
 
+def grad_trace(config, size, seed):
+    """Relative gradient errors of one float32 step against float64, module
+    by module in backward order (see the module docstring)."""
+    import numpy as np
+    import torch
+    import chip_smoke as smoke
+    from lednet_tpu_torch.apis import init_model
+    from lednet_tpu_torch.config import Config
+    from lednet_tpu_torch.engine import (build_optimizer, create_train_state,
+                                         make_train_step)
+    cfg = Config.fromfile(os.path.join(REPO, config))
+    extra = {'model.data_preprocessor.size': (size, size)}
+    if cfg.model.get('auxiliary_head'):
+        extra.update({'model.decode_head.dropout_ratio': 0.0,
+                      'model.auxiliary_head': [dict(h, dropout_ratio=0.0)
+                                               for h in cfg.model.auxiliary_head]})
+    cfg.merge_from_dict(extra)
+    imgs, lbl = smoke.train_batch(np.random.default_rng(seed), 2, size)
+
+    def traced(device, dtype, kept, flips, pin):
+        model = init_model(cfg, device=device,
+                           generator=torch.Generator().manual_seed(seed))
+        model.to(dtype)
+        grads, order = {}, []
+
+        def keep(name, t):
+            def hook(g):
+                if name not in grads:
+                    order.append(name)
+                grads[name] = g.detach().double().cpu()
+            if torch.is_tensor(t) and t.requires_grad:
+                t.register_hook(hook)
+
+        def forward_hook(name):
+            def hook(mod, inp, out):
+                keep(f'{name} out', out)
+                keep(f'{name} in', inp[0] if inp else None)
+            return hook
+        for name, m in model.named_modules():
+            if not list(m.children()):
+                m.register_forward_hook(forward_hook(name))
+        for name, p in model.named_parameters():
+            keep(f'{name} param', p)
+        opt, sched = build_optimizer(model, cfg.optim_wrapper,
+                                     cfg.param_scheduler)
+        step = make_train_step(model, opt, model.data_preprocessor)
+        with torch.backends.cudnn.flags(enabled=False), \
+                smoke.decisions(kept, flips, pin):
+            step(create_train_state(model, opt, sched), imgs.to(device),
+                 lbl.to(device))
+        return grads, order
+
+    kept = []
+    exact, order = traced('cpu', torch.float64, kept, None, False)
+    runs = {}
+    for name, device in (('cpu32', 'cpu'), ('card32', 'cuda')):
+        n = {}
+        runs[name] = traced(device, torch.float32, kept, n, True)[0]
+        print(f'{name}: elements decided otherwise than in float64 (then '
+              f'pinned): {n}', flush=True)
+    rows = []
+    for key in order:
+        ref = exact[key]
+        scale = ref.abs().max().item()
+        errs = {name: ((g[key] - ref).abs().max().item() / scale
+                       if scale > 0 and key in g else None)
+                for name, g in runs.items()}
+        rows.append(dict(key=key, max_abs=scale, **errs))
+        print(f'{key}: max|g| {scale:.3e}; rel err ' + ', '.join(
+            f'{n} {e:.2e}' if e is not None else f'{n} -'
+            for n, e in errs.items()), flush=True)
+    os.makedirs(os.path.join(REPO, 'chiprun_out'), exist_ok=True)
+    with open(os.path.join(REPO, 'chiprun_out', 'grad_trace.json'), 'w') as f:
+        json.dump(dict(config=config, size=size, seed=seed, rows=rows), f)
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -97,6 +184,7 @@ def main() -> int:
     ap.add_argument('--size', type=int, default=256)
     ap.add_argument('--cpu-only', action='store_true')
     ap.add_argument('--conv-probe', action='store_true')
+    ap.add_argument('--grad-trace', metavar='CONFIG')
     ap.add_argument('--cudnn', nargs='*', default=[],
                     choices=('deterministic', 'benchmark', 'off'))
     args = ap.parse_args()
@@ -117,6 +205,9 @@ def main() -> int:
              '--format=csv,noheader'], capture_output=True, text=True,
             timeout=60, check=True).stdout.strip().splitlines()[0].strip()
         print(card, flush=True)
+    if args.grad_trace:
+        grad_trace(args.grad_trace, args.size, args.seeds[0])
+        return 0
     cfg = Config.fromfile(os.path.join(REPO, smoke.CONFIG))
     cfg.merge_from_dict({'model.data_preprocessor.size': (args.size, args.size)})
     threads = torch.get_num_threads()
