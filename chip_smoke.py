@@ -17,10 +17,17 @@ printing one flushed line with its seconds:
    launches per forward; each call is re-run through the kernel and through
    its plain PyTorch version on the same inputs and held to
    max|kernel - plain| <= TOL * max|plain| (normalization: bit-exact);
-3b. pyramid: kernel E (``sesp_pyramid``), which no model calls, at each
-   distinct pyramid shape of the SESP calls recorded in phase 3 (n, H, W,
-   rates, stride; their dw1/dw2 and a seeded random reduced map), with the
-   v2 stage and without, held to its plain version like phase 3;
+3b. pyramid: kernel E (``sesp_pyramid``), which no model calls, held to
+   its plain version like phase 3, with the v2 stage and without, at three
+   sets: the flagship set, each distinct pyramid shape of the SESP calls
+   recorded in phase 3 (n, H, W, rates, stride; their dw1/dw2 and a seeded
+   random reduced map); the val set, the same at Runner.val's B=8 and W
+   doubled (8 x 1024 x 2048 frames); ragged shapes (RAGGED_PYRAMID: W % 4
+   != 0, which takes the cp.async path, maps smaller than one tile, k = 1,
+   2, 3), each line naming TMA or cp.async and the tile; a device trace of
+   these checks must count one launch of E's device functions
+   (``DEVICE_FUNCTIONS``, which the later "E never launches" readings use)
+   per check;
 3c. ragged: kernels B and C called directly at shapes the main path (which
    pads to /32) never gives them: batch 2, sizes that are not multiples of
    the tiles (odd and even), maps smaller than one tile, bf16 and float32
@@ -39,8 +46,14 @@ printing one flushed line with its seconds:
 5. timing: CUDA-event time of the kernel-path forward (preprocess +
    predict, bs=1, 5 warm-up + 50 timed), the plain path's, and each kernel's
    and plain version's time per launch at the main path's inputs (E's at
-   phase 3b's inputs); kernel D's time is printed per call site, and B's,
-   C's and D's beside their times before their redesigns.
+   phase 3b's flagship set); kernel D's time is printed per call site, and
+   B's, C's and D's beside their times before their redesigns.  Kernel E
+   at its flagship and val sets, per shape and summed: device time
+   (``torch.profiler``) beside EARLIER_PYRAMID_MS (before its redesign) and
+   its share of the bound, CUDA-event time, bound, plain version, and
+   cuDNN's nearest composition (``cudnn_pyramid``: three calls, timed as a
+   yardstick only and never called by the port, so ``library_ms`` stays
+   null).
    Each kernel's bound is the larger of its bytes over 3.35 TB/s and its
    operations over the peak of the units it runs them on: TF32 tensor cores
    (495 TFLOP/s, three TF32 products per float32 product, two for a bf16
@@ -148,8 +161,11 @@ device trace saw there; ``entry_point_launches`` and
 test + TTA run; ``branch_max_abs_err``: the kernel's largest error against
 its plain version over phase 9's shapes; ``zoo_launches``,
 ``zoo_device_launches``: the same of phase 10's ``inference_model`` runs,
-``zoo_max_abs_err``: A's at float32 output), and last ``{"ok": true,
-"device": {...}}``.
+``zoo_max_abs_err``: A's at float32 output; E's row also has
+``device_ms`` and ``cudnn_composition_ms`` per call at the flagship set,
+and ``val_ms``, ``val_plain_ms``, ``val_bound_ms``, ``val_device_ms`` and
+``val_cudnn_composition_ms`` at the val set, all measured in this run),
+and last ``{"ok": true, "device": {...}}``.
 Without CUDA, or without the package beside it, it exits non-zero and
 prints no result.
 """
@@ -225,6 +241,22 @@ EARLIER_SESP_MS = (0.1155, 0.1265, 0.1262)
 # float32 pipes), measured by this script on an NVIDIA H100 80GB HBM3 at 700 W
 EARLIER_STEM_MS = 0.1260
 EARLIER_PAIR_MS = 0.2622
+# kernel E's summed device time (torch.profiler) over each set's 16 calls
+# before its Hopper redesign (tools/torch_port_profile.py --pyramid --val on
+# an NVIDIA H100 80GB HBM3 at 700 W): the flagship set (phase 3b's pyramid
+# shapes, bs 1) and the val set (the same at Runner.val's B=8, W doubled)
+EARLIER_PYRAMID_MS = {'flagship': 0.1136, 'val': 1.0361}
+# kernel E off its two sets: (B, n, H, W), rates, stride.  W % 4 != 0 takes
+# the cp.async path (21, 9, 378, 70, 6, 41); maps smaller than one tile;
+# k = 1, 2, 3
+RAGGED_PYRAMID = [((2, 16, 13, 21), (1, 2, 3, 4), 1),
+                  ((2, 16, 13, 21), (1, 2, 3, 4), 2),
+                  ((1, 32, 7, 9), (1, 1, 2, 3), 1),
+                  ((2, 32, 250, 378), (1, 1, 1, 1), 1),
+                  ((2, 16, 37, 70), (2, 3, 4), 2),
+                  ((1, 16, 5, 6), (1, 2), 1),
+                  ((3, 8, 40, 41), (3,), 2),
+                  ((2, 8, 37, 44), (1, 2, 3), 1)]
 # shapes off the main path (which pads to /32) for kernels B and C: batch 2,
 # odd and even sizes that are not multiples of the tiles, maps smaller than
 # one tile, and the 16-channel width; B's bf16 input is staged by 16-byte
@@ -285,19 +317,24 @@ def device_trace(counts):
     from torch.profiler import ProfilerActivity, profile
     from lednet_tpu_torch.ops import kernels
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        # a session can miss the device activities of its first moments (up
-        # to three kernels in phase 8; in one run 64 pad kernels and the
-        # next four): spend them on tiny kernels of no port op, then give
-        # the tracer time before the traced work
-        pad = torch.zeros(1, device='cuda')
-        for _ in range(2):
-            for _ in range(64):
-                pad.add_(1)
-            torch.cuda.synchronize()
-            time.sleep(0.05)
+        pad_trace()
         yield
         torch.cuda.synchronize()
     counts.update(kernels.device_launches(prof.key_averages()))
+
+
+def pad_trace():
+    """A profiler session can miss the device activities of its first
+    moments (up to three kernels in phase 8; in one run 64 pad kernels and
+    the next four): spend them on tiny kernels of no port op, then give the
+    tracer time before the traced work."""
+    import torch
+    pad = torch.zeros(1, device='cuda')
+    for _ in range(2):
+        for _ in range(64):
+            pad.add_(1)
+        torch.cuda.synchronize()
+        time.sleep(0.05)
 
 
 def synced_ms(fn, reps, warmup=3):
@@ -391,6 +428,103 @@ def work(name, args, kw):
         return (sum(nb(t) for t in tensors) + 4 * B * C * h2 * w2,
                 B * (18 * C * stages + C) * h2 * w2, 0)
     raise ValueError(name)
+
+
+def pyramid_sets(calls, gen):
+    """Kernel E's calls (name, op, args, kwargs) by set: ``flagship``, each
+    distinct pyramid shape of the SESP calls in ``calls`` (n, H, W, rates,
+    stride; their dw1 / dw2 and a seeded random reduced map); ``val``, the
+    same at Runner.val's batch and frame width (B=8, W doubled); ``ragged``,
+    RAGGED_PYRAMID with seeded random taps.  Each with the v2 stage and
+    without."""
+    import torch
+    from lednet_tpu_torch.ops.kernels import sesp_pyramid
+    shapes = {}
+    for name, op, args, kw in calls:
+        if name == 'sesp_block':
+            x, dw1, dw2 = args[0], args[4], args[5]
+            shapes.setdefault((dw1.shape[1], *x.shape[2:], tuple(kw['rates']),
+                               kw['stride']), (x.shape[0], dw1, dw2))
+    operands = {'flagship': [], 'val': [], 'ragged': []}
+    for (n, H, W, rates, stride), (B, dw1, dw2) in shapes.items():
+        operands['flagship'].append(((B, n, H, W), rates, stride, dw1, dw2))
+        operands['val'].append(((VAL_SHAPE[0], n, H, 2 * W), rates, stride,
+                                dw1, dw2))
+    for shape, rates, stride in RAGGED_PYRAMID:
+        dw = [(0.3 * torch.randn((len(rates), shape[1], 3, 3),
+                                 generator=gen)).cuda() for _ in range(2)]
+        operands['ragged'].append((shape, rates, stride, *dw))
+    sets = {}
+    for name, entries in operands.items():
+        sets[name] = []
+        for shape, rates, stride, dw1, dw2 in entries:
+            red = torch.randn(shape, generator=gen).cuda()
+            for d2 in (dw2, None):
+                sets[name].append(('sesp_pyramid', sesp_pyramid,
+                                   (red, dw1, d2, rates), {'stride': stride}))
+    return sets
+
+
+def cudnn_pyramid(dw1, dw2, rates, stride):
+    """Kernel E's yardstick, never called by the port: cuDNN's nearest
+    composition of the pyramid, three calls.  One grouped conv (groups=n)
+    computes every branch's HFF sum at once, the k branches' taps merged
+    into one zero-padded (2 rmax + 1)^2 kernel per output (summing the
+    embedded kernels folds HFF in); one grouped conv (groups=k*n) the v2
+    stage, each branch's taps at dilation rate + 1 in a zero-padded kernel;
+    one permutation puts the channels in the op's [g][j] order."""
+    import torch.nn.functional as F
+    k, n = dw1.shape[:2]
+    r = max(rates)
+    w1 = dw1.new_zeros((n, k, 2 * r + 1, 2 * r + 1))
+    for g, d in enumerate(rates):
+        w1[:, g:, r - d:r + d + 1:d, r - d:r + d + 1:d] += dw1[g].unsqueeze(1)
+    w1 = w1.reshape(n * k, 1, 2 * r + 1, 2 * r + 1)
+    if dw2 is not None:
+        m = r + 1
+        w2 = dw2.new_zeros((n, k, 2 * m + 1, 2 * m + 1))
+        for g, d in enumerate(rates):
+            w2[:, g, m - d - 1:m + d + 2:d + 1, m - d - 1:m + d + 2:d + 1] = dw2[g]
+        w2 = w2.reshape(n * k, 1, 2 * m + 1, 2 * m + 1)
+
+    def run(red):
+        y = F.conv2d(red, w1, stride=stride, padding=r, groups=n)
+        if dw2 is not None:
+            y = F.conv2d(y, w2, padding=r + 1, groups=n * k)
+        B, _, h, w = y.shape
+        return y.view(B, n, k, h, w).transpose(1, 2).reshape(B, k * n, h, w)
+    return run
+
+
+def device_ms(fn, name, iters=20, sessions=3, counts=False):
+    """Device ms per launch of op ``name``'s kernels (their names in
+    ``DEVICE_FUNCTIONS``) over ``iters`` calls of fn, from a CUPTI trace
+    (and the launches it saw, with ``counts``).  A session now and then
+    records no device activity at all (on the card, one of 32 short
+    sessions): a session that saw none of the launches is taken again, up
+    to ``sessions`` times."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from lednet_tpu_torch.ops.kernels import DEVICE_FUNCTIONS
+    fns = [f'lednet::{f}' for f in DEVICE_FUNCTIONS[name]]
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            pad_trace()
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        evts = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and any(f in e.key for f in fns)]
+        count = sum(e.count for e in evts)
+        if count:
+            ms = sum(e.self_device_time_total for e in evts) / 1e3 / count
+            return (ms, count) if counts else ms
+    raise AssertionError(f'no launch of {fns} in {sessions} traces')
 
 
 def outputs(res):
@@ -1449,36 +1583,34 @@ def main() -> int:
             raise AssertionError(f'the main path called no {missing}')
 
     with phase('3b pyramid'):
-        from lednet_tpu_torch.ops.kernels import sesp_pyramid
-        shapes = {}
-        for name, op, args, kw in calls:
-            if name == 'sesp_block':
-                x, dw1, dw2 = args[0], args[4], args[5]
-                key = (dw1.shape[1], *x.shape[2:], tuple(kw['rates']),
-                       kw['stride'])
-                shapes.setdefault(key, (x.shape[0], dw1, dw2))
-        pyr_calls = []
-        for (n, H, W, rates, stride), (B, dw1, dw2) in shapes.items():
-            red = torch.randn((B, n, H, W), generator=gen).cuda()
-            for d2 in (dw2, None):
-                pyr_calls.append(('sesp_pyramid', sesp_pyramid,
-                                  (red, dw1, d2, rates), {'stride': stride}))
-        for name, op, args, kw in pyr_calls:
-            with torch.inference_mode():
-                got = op(*args, **dict(kw, impl='cuda'))
-                torch.cuda.synchronize()
-                ref = op(*args, **dict(kw, impl='plain'))
-                torch.cuda.synchronize()
-            if got.shape != ref.shape:
-                raise AssertionError(f'{name}: {got.shape} vs {ref.shape}')
-            e_rel, e_abs = rel(got, ref), (got.double() - ref.double()).abs().max().item()
-            say(f'  {name} {shape_of(args)} rates {args[3]} stride '
-                f'{kw["stride"]} v2 {args[2] is not None}: max_abs {e_abs:.3e} '
-                f'rel {e_rel:.3e} (tol {TOL_KERNEL:g})')
-            if not e_rel <= TOL_KERNEL:
-                raise AssertionError(f'{name} {shape_of(args)} disagrees '
-                                     f'with its plain version')
-            errs[name].append(e_abs)
+        from lednet_tpu_torch.ops.kernels.sesp_pyramid import pyramid_geometry
+        pyr_sets = pyramid_sets(calls, gen)
+        traced = {}
+        with device_trace(traced):
+            for set_name, entries in pyr_sets.items():
+                for name, op, args, kw in entries:
+                    red, dw1, dw2, rates = args
+                    B, n, H, W = red.shape
+                    geo = pyramid_geometry(B, H, W, n, len(rates), tuple(rates),
+                                           kw['stride'], dw2 is not None,
+                                           red.data_ptr() % 16 == 0)
+                    say(f'  [{set_name}] rates {tuple(rates)}, '
+                        f'{"TMA" if geo.tma else "cp.async"}, tile '
+                        f'{geo.th}x{geo.tw}, {geo.stages} stages, grid '
+                        f'{geo.grid}, v2 {dw2 is not None}:')
+                    check_against_plain(name, op, args, kw, TOL_KERNEL,
+                                        errs[name])
+        # the kernel launches once per check: the device function names the
+        # later "E never launches" readings use do find its launches
+        n_checks = sum(len(e) for e in pyr_sets.values())
+        say(f'  {n_checks} checks, kernel E launches on the device: '
+            f'{traced["sesp_pyramid"]}')
+        if traced['sesp_pyramid'] != n_checks:
+            raise AssertionError(f'the trace shows {traced["sesp_pyramid"]} '
+                                 f'launches of kernel E, not {n_checks}')
+        if not any(a[0].shape[3] % 4 for _, _, a, _ in pyr_sets['ragged']):
+            raise AssertionError('no ragged shape takes the cp.async path')
+        pyr_calls = pyr_sets['flagship']
 
     with phase('3c ragged'):
         # kernels B and C called directly at shapes the main path never
@@ -1590,11 +1722,11 @@ def main() -> int:
                     ms, plain_ms, bound = ms + t, plain_ms + t_plain, bound + b
                     old_bound += b_f32
                     bound_by[by] += b
-                    if name in ('sesp_block', 'sesp_pyramid'):
-                        rates = kw['rates'] if name == 'sesp_block' else args[3]
-                        say(f'    {name} {shape_of(args)} rates {tuple(rates)} '
-                            f'stride {kw["stride"]}: {t:.4f} ms, bound '
-                            f'{b:.4f} ms, plain {t_plain:.4f} ms')
+                    if name == 'sesp_block':
+                        say(f'    {name} {shape_of(args)} rates '
+                            f'{tuple(kw["rates"])} stride {kw["stride"]}: '
+                            f'{t:.4f} ms, bound {b:.4f} ms, plain '
+                            f'{t_plain:.4f} ms')
             k = len(mine)
             rows.append(dict(
                 name=name, route='cuda', source=source, replaces=replaces,
@@ -1615,6 +1747,55 @@ def main() -> int:
             if name in earlier:
                 say(f'  {name} before its redesign (same card type): '
                     f'{earlier[name]} ms/launch')
+        # kernel E at both sets, per shape: device time (CUPTI), CUDA-event
+        # time, bound, plain version and cuDNN's three-call composition;
+        # summed beside E's device time before its redesign
+        e_row = next(r for r in rows if r['name'] == 'sesp_pyramid')
+        for set_name in ('flagship', 'val'):
+            tot = dict(device=0.0, ms=0.0, plain=0.0, bound=0.0, cudnn=0.0)
+            with torch.inference_mode():
+                for _, op, args, kw in pyr_sets[set_name]:
+                    red, dw1, dw2, rates = args
+                    def run():
+                        return op(*args, **dict(kw, impl='cuda'))
+                    def plain():
+                        return op(*args, **dict(kw, impl='plain'))
+                    cudnn = cudnn_pyramid(dw1, dw2, rates, kw['stride'])
+                    e_cudnn = rel(cudnn(red), plain())
+                    if not e_cudnn <= 1e-4:
+                        raise AssertionError(f'the cuDNN composition misses '
+                                             f'the pyramid: rel {e_cudnn:.3e}')
+                    t = dict(device=device_ms(run, 'sesp_pyramid'),
+                             ms=cuda_ms(run, 20), plain=cuda_ms(plain, 20),
+                             bound=bounds_ms('sesp_pyramid', args, kw)[0],
+                             cudnn=cuda_ms(lambda: cudnn(red), 20))
+                    tot = {key: tot[key] + t[key] for key in tot}
+                    say(f'    [{set_name}] sesp_pyramid {shape_of(args)} rates '
+                        f'{tuple(rates)} stride {kw["stride"]} v2 '
+                        f'{dw2 is not None}: device {t["device"]:.4f} ms, '
+                        f'{t["ms"]:.4f} ms, bound {t["bound"]:.4f} ms, plain '
+                        f'{t["plain"]:.4f} ms, cuDNN composition '
+                        f'{t["cudnn"]:.4f} ms (rel {e_cudnn:.1e})')
+            k = len(pyr_sets[set_name])
+            say(f'  sesp_pyramid [{set_name}] over {k} calls: device '
+                f'{tot["device"]:.4f} ms (before its redesign '
+                f'{EARLIER_PYRAMID_MS[set_name]:.4f} ms, same card type), '
+                f'{tot["bound"] / tot["device"]:.3f} of the bound '
+                f'{tot["bound"]:.4f} ms; CUDA events {tot["ms"]:.4f} ms, plain '
+                f'{tot["plain"]:.4f} ms, cuDNN composition {tot["cudnn"]:.4f} '
+                f'ms; on {card}')
+            prefix = '' if set_name == 'flagship' else 'val_'
+            if set_name == 'val':
+                e_row.update(val_ms=tot['ms'] / k, val_plain_ms=tot['plain'] / k,
+                             val_bound_ms=tot['bound'] / k)
+            e_row.update({f'{prefix}device_ms': tot['device'] / k,
+                          f'{prefix}cudnn_composition_ms': tot['cudnn'] / k})
+        # no later phase runs kernel E: its maps (in the sets, phase 3b's
+        # last set of entries and phase 5's last list of calls) go, and so
+        # do the blocks the allocator cached for them, so that the later
+        # phases' peak memory counts none of them
+        del pyr_sets, pyr_calls, entries, mine, red, dw1, dw2, args, cudnn
+        torch.cuda.empty_cache()
 
     from lednet_tpu_torch.config import Config
     from lednet_tpu_torch.engine import (build_optimizer, create_train_state,

@@ -1,7 +1,8 @@
-// The SESP pyramid of one output tile, shared by kernel E (sesp_pyramid.cu)
-// and kernel D's fused launch (sesp_block.cu), as the TPU package shares
-// _pyramid_body (lednet_tpu/ops/pallas/sesp_pyramid.py:135) between its
-// sesp_pyramid and sesp_block kernels.
+// The SESP pyramid of one output tile in kernel D's fused launch
+// (sesp_block.cu).  Kernel E (sesp_pyramid.cu) shared it until its Hopper
+// redesign, which has a core of its own (persistent CTAs, a TMA ring,
+// register strips); the TPU package shares _pyramid_body
+// (lednet_tpu/ops/pallas/sesp_pyramid.py:135) between its two kernels.
 //
 // A CTA owns an output tile of th x tw pixels of the H2 x W2 map and walks a
 // chunk of jc red channels at a time through shared memory:
@@ -12,7 +13,7 @@
 //      zero padding, not computed values.
 // S holds every branch's sum (one pass over the grown tile computes all k);
 // the v2 stage (dilation rates[g] + 1) then reads S[g] at the tile's pixels
-// (each kernel has its own loop for that step).  Every step is per red
+// (sesp_block.cu has its own loop for that step).  Every step is per red
 // channel, so a chunk of channels needs only its own halo tiles, never the
 // whole C-channel map.
 //

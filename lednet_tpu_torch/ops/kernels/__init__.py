@@ -24,7 +24,7 @@ DEVICE_FUNCTIONS = {
     'stem_convs': ('stem_fused_kernel',),
     'basic_pair': ('basic_block_kernel',),
     'sesp_block': ('sesp_reduce_kernel', 'sesp_fused_kernel'),
-    'sesp_pyramid': ('sesp_pyramid_kernel',),
+    'sesp_pyramid': ('pyramid_ring_kernel',),
 }
 
 

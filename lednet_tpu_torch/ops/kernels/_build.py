@@ -45,7 +45,7 @@ SIGNATURES = {
     'lednet_basic_block': [_P] * 4 + [_I] * 8 + [_P],
     'lednet_sesp_reduce': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     'lednet_sesp_fused': [_P] * 11 + [_I] * 17 + [_P],
-    'lednet_sesp_pyramid': [_P] * 4 + [_I] * 13 + [_P],
+    'lednet_sesp_pyramid': [_P] * 4 + [_I] * 24 + [_P],
 }
 
 

@@ -2,18 +2,20 @@
 branch pyramid on its own (``sesp_pyramid``).
 
 - E replaces ``lednet_tpu/ops/pallas/sesp_pyramid.py:79`` (``sesp_pyramid``);
-  CUDA source ``lednet_tpu_torch/csrc/sesp_pyramid.cu``, one launch.
+  CUDA source ``lednet_tpu_torch/csrc/sesp_pyramid.cu``, one launch of
+  persistent CTAs that walk (plane, output tile) items through a ring of
+  red boxes fed by TMA.
 - D replaces ``sesp_pyramid.py:207`` (``sesp_block``); CUDA source
   ``lednet_tpu_torch/csrc/sesp_block.cu``, two launches: a register-tiled
   reduce, then one fused launch of pyramid, BatchNorm + PReLU, expand and
   tail that keeps the pyramid map and ``y`` on chip.  Unlike the TPU
   kernel's VMEM gate (``pyramid_fits`` :285) it also takes stride-2 blocks
-  wider than 128 channels (LED-Net's context3 down-sampler).
+  wider than 128 channels (LED-Net's context3 down-sampler).  Its pyramid
+  device code is ``csrc/sesp_common.cuh``.
 
-Both share their pyramid device code (``csrc/sesp_common.cuh``), as the TPU
-kernels share ``_pyramid_body`` (:135).  Tiles, channel splits and chunk
-sizes are chosen here (:func:`fused_config`, :func:`pyramid_config`,
-:func:`reduce_config`), so the CPU tests reach them.
+Tiles, channel splits, chunk sizes and ring depths are chosen here
+(:func:`fused_config`, :func:`reduce_config`, :func:`pyramid_geometry`),
+so the CPU tests reach them.
 
 :func:`bn_fold` and :func:`dense_grouped` are the host-side helpers that turn
 a SESP module's parameters into kernel D's operands
@@ -224,29 +226,116 @@ def reduce_config(B: int, HW: int, n: int):
     return (4 if ctas >= SMS else 1), opt
 
 
-@functools.lru_cache(maxsize=None)
-def pyramid_config(B: int, H: int, W: int, n: int, k: int, rates: tuple,
-                   stride: int, v2: bool):
-    """(th, tw, jc) of kernel E: 16x16 output tiles (8x8 on maps under
-    32x32) and the largest chunk of channels, up to 8, that keeps 132 CTAs
-    and one CTA's shared memory under half of what the card allows."""
+# kernel E (csrc/sesp_pyramid.cu): 256 threads in 8-wide register strips,
+# at most two CTAs per SM (``__launch_bounds__(256, 2)``)
+E_CTAS_PER_SM = 2
+E_HEAD_BYTES = 896      # mbarriers (128 B) + two buffers of 4 x 24 taps
+TMA_BOX_MAX = 256       # a TMA box side, in elements
+E_MIN_ITEMS = 128       # items of a launch: one per SM on all but 4 SMs
+
+
+class PyramidGeometry(NamedTuple):
+    """One launch of kernel E (``Ring`` in ``csrc/sesp_pyramid.cu``, which
+    takes every field from here and refuses a layout its reads and writes
+    cannot use).
+
+    Output tiles th x tw; the HFF sums over the tile grown by m2 = max rate
+    + 1 rows on each side (v2 only) and ca = m2 rounded up to 4 columns
+    (sh x su); their shared-memory pitch sp; the red box rh x rw that one
+    load brings in (TMA, or cp.async when ``tma`` is False), ``box`` floats
+    a stage in a ring of ``stages``; ``items`` = planes x tiles, walked by
+    ``grid`` persistent CTAs, ``ctas_per_sm`` of them resident on one SM."""
+    th: int
+    tw: int
+    stages: int
+    tma: bool
+    m2: int
+    ca: int
+    sh: int
+    su: int
+    sp: int
+    rh: int
+    rw: int
+    box: int
+    smem: int          # bytes of shared memory per CTA
+    ctas_per_sm: int
+    items: int
+    grid: int
+
+
+def pyramid_tile(B: int, H: int, W: int, n: int, rates: Sequence[int],
+                 stride: int, v2: bool, th: int, tw: int, stages: int,
+                 tma: bool) -> PyramidGeometry:
+    """Kernel E's launch at output tile th x tw with a ring of ``stages``
+    boxes.  Stage 1 reads red through aligned float4 windows 4 columns
+    beyond the largest rate, so a box row holds stride * su + 8 columns,
+    padded to 4 mod 8 floats (no bank conflict between two rows' windows);
+    each box is rounded to 128 bytes (TMA's alignment).  Shared memory: the
+    head (mbarriers, taps), the ring and, with v2, the k HFF sums over the
+    grown tile at a pitch of su + 4 (4 mod 8 floats)."""
+    k, rmax = len(rates), max(rates)
+    m2 = rmax + 1 if v2 else 0
+    ca = _r4(m2)
+    sh, su = th + 2 * m2, tw + 2 * ca
+    rh = (sh - 1) * stride + 1 + 2 * rmax
+    rw = stride * su + 8
+    rw += 4 if rw % 8 == 0 else 0
+    box = -(-rh * rw // 32) * 32
+    smem = E_HEAD_BYTES + 4 * (stages * box + (k * sh * (su + 4) if v2 else 0))
+    per_sm = min(E_CTAS_PER_SM, SMEM_BYTES // (smem + 1024))
     H2, W2 = -(-H // stride), -(-W // stride)
-    t = 16 if min(H2, W2) >= 32 else 8
-    tiles = -(-H2 // t) * -(-W2 // t) * B
-    jc = 1
-    for cand in (2, 4, 8):
-        if cand > n or tiles * -(-n // cand) < SMS or \
-                pyramid_smem(H, W, k, rates, stride, v2, t, t, cand) \
-                > SMEM_BYTES // 2:
+    items = B * n * -(-H2 // th) * -(-W2 // tw)
+    return PyramidGeometry(th, tw, stages, tma, m2, ca, sh, su, su + 4, rh,
+                           rw, box, smem, per_sm, items,
+                           min(items, SMS * per_sm))
+
+
+@functools.lru_cache(maxsize=None)
+def pyramid_geometry(B: int, H: int, W: int, n: int, k: int, rates: tuple,
+                     stride: int, v2: bool, aligned: bool = True
+                     ) -> PyramidGeometry:
+    """Kernel E's launch for this shape.  Tiles are 32 columns wide (16 on
+    maps at most 16 wide) and of the largest height, from 64 rows down to 8,
+    that fits two CTAs per SM (with a ring of 3 boxes, else 2) and still
+    gives at least E_MIN_ITEMS items.  A larger tile recomputes less of the
+    v2 halo and pays the per-item waits fewer times; below about one item
+    per SM the card idles (``tools/torch_port_profile.py --pyramid-sweep``
+    times every tile).  The red box comes by TMA where W is a multiple of 4
+    and ``red`` is 16-byte aligned (``aligned``; TMA needs 16-byte row
+    strides), else by 4-byte cp.async copies."""
+    H2, W2 = -(-H // stride), -(-W // stride)
+    tw = 16 if W2 <= 16 else 32
+    tma = W % 4 == 0 and aligned
+    best = None
+    for th in (64, 32, 16, 8):
+        if th > 8 and th // 2 >= H2:
+            continue
+        for stages in (3, 2):
+            geo = pyramid_tile(B, H, W, n, rates[:k], stride, v2, th, tw,
+                               stages, tma)
+            if (geo.ctas_per_sm == E_CTAS_PER_SM
+                    and max(geo.rh, geo.rw) <= TMA_BOX_MAX):
+                best = geo
+                break
+        if best is not None and best.items >= E_MIN_ITEMS:
             break
-        jc = cand
-    return t, t, jc
+    if best is None:
+        raise ValueError(f'no kernel E launch fits: H={H} W={W} '
+                         f'rates={tuple(rates)} stride={stride}')
+    return best
 
 
-def pyramid_smem(H, W, k, rates, stride, v2, th, tw, jc) -> int:
-    """Shared memory of one kernel E CTA in bytes (``sesp_pyramid.cu``)."""
-    red, grown = _tile_floats(H, W, rates, stride, v2, th, tw)
-    return 4 * (_r4(k * jc * grown) + _r4(jc * red) + 2 * k * jc * 9)
+def launch_pyramid(red, dw1, dw2, out, rates: Sequence[int], stride: int,
+                   geo: PyramidGeometry) -> None:
+    """Launch kernel E with the layout ``geo`` on red's stream; raises on
+    a launch the kernel refuses."""
+    B, n, H, W = red.shape
+    k = len(rates)
+    check(library().lednet_sesp_pyramid(
+        red.data_ptr(), dw1.data_ptr(), ptr(dw2), out.data_ptr(), B, n, H, W,
+        k, *(list(rates) + [1] * (4 - k)), stride, geo.th, geo.tw, geo.stages,
+        geo.m2, geo.ca, geo.sh, geo.su, geo.sp, geo.rh, geo.rw, geo.box,
+        geo.smem, geo.grid, int(geo.tma), stream_ptr(red)), 'sesp_pyramid')
 
 
 # ------------------------------------------------------------ the ops
@@ -297,17 +386,15 @@ def sesp_pyramid(red: torch.Tensor, dw1: torch.Tensor,
     require(red, 'red', torch.float32)
     if red.dim() != 4:
         raise ValueError(f'red must be NCHW, got {tuple(red.shape)}')
-    k, n, r = _check_pyramid(red, dw1, dw2, rates, stride)
+    k, n, _ = _check_pyramid(red, dw1, dw2, rates, stride)
     B, n_red, H, W = red.shape
     if n_red != n:
         raise ValueError(f'red has {n_red} channels, dw1 {n}')
-    th, tw, jc = pyramid_config(B, H, W, n, k, tuple(rates), stride,
-                                dw2 is not None)
+    geo = pyramid_geometry(B, H, W, n, k, tuple(rates), stride,
+                           dw2 is not None, red.data_ptr() % 16 == 0)
     out = torch.empty((B, k * n, -(-H // stride), -(-W // stride)),
                       dtype=torch.float32, device=red.device)
-    check(library().lednet_sesp_pyramid(
-        red.data_ptr(), dw1.data_ptr(), ptr(dw2), out.data_ptr(), B, n, H, W,
-        k, *r, stride, th, tw, jc, stream_ptr(red)), 'sesp_pyramid')
+    launch_pyramid(red, dw1, dw2, out, rates, stride, geo)
     sesp_pyramid.launches += 1
     return out
 

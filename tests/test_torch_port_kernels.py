@@ -29,13 +29,17 @@ from lednet_tpu.ops.s2d import (depth_to_space, pack_s1_conv_weights,
 from lednet_tpu_torch.ops.kernels import (basic_pair, normalize_image,
                                           sesp_block, sesp_pyramid, stem_convs)
 from lednet_tpu_torch.ops.kernels import conv3x3
-from lednet_tpu_torch.ops.kernels.sesp_pyramid import (SMEM_BYTES, THREADS,
+from lednet_tpu_torch.ops.kernels.sesp_pyramid import (E_CTAS_PER_SM, SMS,
+                                                       SMEM_BYTES, THREADS,
+                                                       TMA_BOX_MAX,
                                                        bn_fold, dense_grouped,
                                                        fused_config,
                                                        fused_smem,
-                                                       pyramid_config,
-                                                       pyramid_smem,
-                                                       reduce_config)
+                                                       PyramidGeometry,
+                                                       pyramid_geometry,
+                                                       pyramid_tile,
+                                                       reduce_config,
+                                                       sesp_pyramid_plain)
 from test_torch_port_common import nchw, nhwc, rel_err
 
 MEAN = [123.675, 116.28, 103.53]
@@ -297,10 +301,10 @@ FLAGSHIP_SESP = [
 
 @pytest.mark.parametrize('cin,n,H,W,rates,stride', FLAGSHIP_SESP)
 def test_sesp_launch_configs_fit_the_card(cin, n, H, W, rates, stride):
-    """Kernel D's fused launch and kernel E get a geometry that the kernels
-    take (256 threads, whole thread tiles, power-of-two tiles, chunks and
-    clusters) within one CTA's shared memory (227 KB), with and without the
-    v2 stage."""
+    """Kernel D's fused launch gets a geometry that the kernel takes (256
+    threads, whole thread tiles, power-of-two tiles, chunks and clusters)
+    within one CTA's shared memory (227 KB), with and without the v2 stage
+    (kernel E's geometry: ``test_pyramid_geometry_fits_the_card``)."""
     k = 4
     C = k * n
     H2, W2 = -(-H // stride), -(-W // stride)
@@ -317,9 +321,6 @@ def test_sesp_launch_configs_fit_the_card(cin, n, H, W, rates, stride):
         assert cfg.cs <= -(-n // cfg.jc)             # every CTA has a chunk
         assert cfg.ctas == (-(-H2 // cfg.th) * -(-W2 // cfg.tw)
                             * -(-C // cfg.oc) * cfg.cs)
-        th, tw, jc = pyramid_config(1, H, W, n, k, rates, stride, v2)
-        assert pyramid_smem(H, W, k, rates, stride, v2, th, tw, jc) \
-            <= SMEM_BYTES and 1 <= jc <= n and pow2(th) and pow2(jc)
     ppt, opt = reduce_config(1, H * W, n)
     assert ppt in (1, 4) and opt in (1, 2, 4) and n <= 16 * opt  # x read once
 
@@ -343,6 +344,173 @@ def test_sesp_pyramid_plain_matches_pallas(rng, H, W, rates, stride,
     out = sesp_pyramid(nchw(red), dw(dw1), dw(dw2), rates, stride)
     assert out.shape == (2, k * n, -(-H // stride), -(-W // stride))
     assert rel_err(nhwc(out), np.asarray(ref)) < 1e-5
+
+
+# kernel E's pyramid shapes: the flagship's 8 (bs 1 at 1024x1024, the input
+# maps of FLAGSHIP_SESP), the val set's (Runner.val's 8 x 1024 x 2048: B=8,
+# W doubled) and ragged ones (W % 4 != 0: the cp.async path; maps smaller
+# than one tile; k = 1, 2, 3): (B, n, H, W, rates, stride)
+PYRAMID_SHAPES = (
+    [(1, n, H, W, rates, s) for _, n, H, W, rates, s in FLAGSHIP_SESP]
+    + [(8, n, H, 2 * W, rates, s) for _, n, H, W, rates, s in FLAGSHIP_SESP]
+    + [(2, 16, 13, 21, (1, 2, 3, 4), 1), (2, 16, 13, 21, (1, 2, 3, 4), 2),
+       (1, 32, 7, 9, (1, 1, 2, 3), 1), (2, 32, 250, 378, (1, 1, 1, 1), 1),
+       (2, 16, 37, 70, (2, 3, 4), 2), (1, 16, 5, 6, (1, 2), 1),
+       (3, 8, 40, 41, (3,), 2)])
+
+
+@pytest.mark.parametrize('B,n,H,W,rates,stride', PYRAMID_SHAPES)
+def test_pyramid_geometry_fits_the_card(B, n, H, W, rates, stride):
+    """Kernel E's launch, with and without the v2 stage: its shared memory
+    within one CTA's 227 KB and the layout's own sum; the CTAs per SM it
+    claims fit the SM's 228 KB (1 KB reserved per CTA) and the kernel's
+    launch bound; a TMA box of at most 256 a side whose rows are a whole
+    number of 16-byte units; TMA exactly where W % 4 == 0 (cp.async
+    otherwise, and for a red that is not 16-byte aligned); a persistent
+    grid of at most the resident CTAs, with items covering the map."""
+    k = len(rates)
+    H2, W2 = -(-H // stride), -(-W // stride)
+    for v2 in (True, False):
+        geo = pyramid_geometry(B, H, W, n, k, rates, stride, v2)
+        th, tw, m2, ca = geo.th, geo.tw, geo.m2, geo.ca
+        sh, su, sp, rh, rw = geo.sh, geo.su, geo.sp, geo.rh, geo.rw
+        assert geo == pyramid_tile(B, H, W, n, rates, stride, v2, th, tw,
+                                   geo.stages, geo.tma)
+        # the head (mbarriers, two buffers of 4 x 24 taps), the ring of
+        # 128-byte-aligned boxes, the k sums (v2)
+        assert geo.box % 32 == 0 and rh * rw <= geo.box < rh * rw + 32
+        assert geo.smem == 4 * (32 + 2 * 96 + geo.stages * geo.box
+                                + (k * sh * sp if v2 else 0)) <= SMEM_BYTES
+        assert geo.ctas_per_sm == E_CTAS_PER_SM
+        assert geo.ctas_per_sm * (geo.smem + 1024) <= 228 * 1024
+        assert max(rh, rw) <= TMA_BOX_MAX and (4 * rw) % 16 == 0
+        assert geo.tma == (W % 4 == 0)
+        assert not pyramid_geometry(B, H, W, n, k, rates, stride, v2,
+                                    False).tma
+        assert geo.stages in (2, 3) and tw in (16, 32) and th in (8, 16, 32, 64)
+        assert m2 == (max(rates) + 1 if v2 else 0)
+        assert ca % 4 == 0 and m2 <= ca < m2 + 4
+        assert (sh, su) == (th + 2 * m2, tw + 2 * ca)
+        assert sp % 8 == 4 and sp >= su and rw % 8 == 4
+        assert geo.items == B * n * -(-H2 // th) * -(-W2 // tw)
+        assert geo.grid == min(geo.items, SMS * geo.ctas_per_sm)
+        # stage 1's box covers the grown tile's windows: rows of every rate,
+        # aligned float4 windows from column stride * u
+        assert rh >= (sh - 1) * stride + 1 + 2 * max(rates)
+        assert rw >= stride * (su - 8) + (16 if stride == 1 else 24)
+
+
+def _geometry(rates, stride, v2, th, tw):
+    """A kernel E launch at a given tile (as ``pyramid_geometry`` builds
+    one), to reach every tile size the chooser can pick."""
+    return pyramid_tile(1, 64, 64, 1, rates, stride, v2, th, tw, 3, True)
+
+
+def emulate_pyramid(red, dw1, dw2, rates, stride, geo):
+    """Kernel E's work decomposition in torch (``csrc/sesp_pyramid.cu``):
+    for each item (plane, output tile), the red box the TMA load brings
+    (zeros outside H x W), stage 1's k branch sums over the grown tile read
+    from aligned float4 windows of the box (8-wide strips), the HFF running
+    sum, zeros outside H2 x W2, stage 2's v2 from aligned windows of the sums,
+    and the masked store.  Every index is checked
+    against the buffer it reads; every output must be written once."""
+    B, n, H, W = red.shape
+    k, rmax = len(rates), max(rates)
+    H2, W2 = -(-H // stride), -(-W // stride)
+    th, tw, m2, ca = geo.th, geo.tw, geo.m2, geo.ca
+    sh, su, sp, rh, rw = geo.sh, geo.su, geo.sp, geo.rh, geo.rw
+    v2 = dw2 is not None
+    out = torch.full((B, k * n, H2, W2), float('nan'))
+    writes = torch.zeros(out.shape, dtype=torch.int64)
+    tiles_w = -(-W2 // tw)
+    tiles = -(-H2 // th) * tiles_w
+    v = torch.arange(sh).view(-1, 1)
+    u = torch.arange(su).view(1, -1)
+    q8, i = u // 8 * 8, u % 8
+    for item in range(B * n * tiles):
+        p, t = divmod(item, tiles)
+        b, c = divmod(p, n)
+        oh0, ow0 = t // tiles_w * th, t % tiles_w * tw
+        r0, c0 = (oh0 - m2) * stride - rmax, (ow0 - ca) * stride - 4
+        box = torch.zeros(rh, rw)
+        rr, cc = slice(max(r0, 0), min(r0 + rh, H)), slice(max(c0, 0), min(c0 + rw, W))
+        box[rr.start - r0:rr.stop - r0, cc.start - c0:cc.stop - c0] = \
+            red[b, c, rr, cc]
+        acc = []
+        for g, d in enumerate(rates):
+            conv = torch.zeros(sh, su)
+            for ky in range(3):
+                row = v * stride + rmax + (ky - 1) * d
+                assert 0 <= row.min() and row.max() < rh
+                start = q8 * stride              # the float4 window
+                width = 16 if stride == 1 else 24
+                assert start.max() + width <= rw and (start % 4 == 0).all()
+                for kx in range(3):
+                    e = 4 + (kx - 1) * d + stride * i
+                    assert 0 <= e.min() and e.max() < width
+                    conv = conv + dw1[g, c, ky, kx] * box[row, start + e]
+            acc.append(conv if g == 0 else conv + acc[-1])
+        oh, ow = oh0 - m2 + v, ow0 - ca + u
+        if v2:
+            inside = (oh >= 0) & (oh < H2) & (ow >= 0) & (ow < W2)
+            S = [torch.where(inside, a, torch.zeros(())) for a in acc]
+            r, q = torch.arange(th).view(-1, 1), torch.arange(tw).view(1, -1)
+            res = []
+            for g, d in enumerate(rates):
+                d2, A = d + 1, -(-(d + 1) // 4) * 4
+                o = torch.zeros(th, tw)
+                for ky in range(3):
+                    row = r + m2 + (ky - 1) * d2
+                    assert 0 <= row.min() and row.max() < sh
+                    start = q // 8 * 8 + ca - A  # the float4 window
+                    assert start.min() >= 0 and start.max() + 8 + 2 * A <= sp
+                    assert (start % 4 == 0).all()
+                    for kx in range(3):
+                        e = A + (kx - 1) * d2 + q % 8
+                        assert (start + e).max() < su     # a computed sum
+                        o = o + dw2[g, c, ky, kx] * S[g][row, start + e]
+                res.append(o)
+        else:
+            res = [a[:th, :tw] for a in acc]
+        hh, ww = min(th, H2 - oh0), min(tw, W2 - ow0)
+        for g in range(k):
+            out[b, g * n + c, oh0:oh0 + hh, ow0:ow0 + ww] = res[g][:hh, :ww]
+            writes[b, g * n + c, oh0:oh0 + hh, ow0:ow0 + ww] += 1
+    assert (writes == 1).all()
+    return out
+
+
+# (B, n, H, W, rates, stride, v2, tile): odd sizes, maps smaller than one
+# tile, stride 2, k = 1..4, v2 on and off; tile None is the chooser's pick
+EMULATED = [
+    (2, 3, 13, 21, (1, 2, 3, 4), 1, True, None),
+    (2, 3, 13, 21, (1, 2, 3, 4), 2, True, None),
+    (2, 3, 13, 21, (1, 1, 2, 3), 1, False, None),
+    (1, 2, 5, 7, (1, 1, 2, 3), 1, True, None),
+    (1, 2, 5, 7, (1, 2, 3, 4), 2, False, None),
+    (1, 2, 37, 45, (1, 1, 1, 1), 1, True, (32, 32)),
+    (1, 2, 70, 45, (1, 1, 1, 1), 1, False, (64, 32)),
+    (1, 2, 67, 70, (1, 2, 3, 4), 2, True, (32, 32)),
+    (1, 2, 40, 33, (4,), 2, False, (16, 16)),
+    (2, 2, 19, 18, (2, 3), 1, True, (8, 16)),
+    (1, 3, 18, 30, (1, 3, 2), 1, True, None),
+    (1, 3, 18, 30, (4, 1, 1), 2, False, None),
+]
+
+
+@pytest.mark.parametrize('B,n,H,W,rates,stride,v2,tile', EMULATED)
+def test_pyramid_emulation_matches_plain(rng, B, n, H, W, rates, stride, v2,
+                                         tile):
+    k = len(rates)
+    red = _t(rng.standard_normal((B, n, H, W)))
+    dw1 = _t(rng.standard_normal((k, n, 3, 3)) * 0.3)
+    dw2 = _t(rng.standard_normal((k, n, 3, 3)) * 0.3) if v2 else None
+    geo = (pyramid_geometry(B, H, W, n, k, rates, stride, v2) if tile is None
+           else _geometry(rates, stride, v2, *tile))
+    emu = emulate_pyramid(red, dw1, dw2, rates, stride, geo)
+    ref = sesp_pyramid_plain(red, dw1, dw2, rates, stride)
+    assert emu.shape == ref.shape
+    assert rel_err(emu.numpy(), ref.numpy()) <= 1e-6
 
 
 def test_fold_helpers_match_jax(rng):

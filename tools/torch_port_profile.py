@@ -23,12 +23,28 @@ GPU.
 adds a third path: the forward as the eval step replays it
 (``lednet_tpu_torch.engine.make_eval_step``: one CUDA graph of preprocess +
 ``predict`` on the kernel path), with the same readings.  Every run also
-reads kernel E's device time per launch at the pyramid shapes of the
+reads kernel E's device time per launch at each pyramid shape of the
 forward's SESP calls (with and without the v2 stage, on seeded random
-maps, as ``chip_smoke.py`` phase 3b checks them): no model calls E, so no
-forward shows it.  ``--ops FILE`` also writes every device op (kernel,
-memcpy, memset) of each path with its calls per forward to FILE, to diff
-two trees' forwards.
+maps, as ``chip_smoke.py`` phase 3b checks them), one profiler session per
+shape, by the device function names in ``ops.kernels.DEVICE_FUNCTIONS``:
+no model calls E, so no forward shows it.  ``--ops FILE`` also writes
+every device op (kernel, memcpy, memset) of each path with its calls per
+forward to FILE, to diff two trees' forwards.
+
+    python3 tools/torch_port_profile.py --pyramid [--val]
+
+reads kernel E alone, without the forward profiles; ``--val`` (also with
+the forward profiles) adds the same shapes at ``Runner.val``'s batch and
+frame width (8 x 1024 x 2048: B=8 and W doubled).
+
+    python3 tools/torch_port_profile.py --pyramid-sweep [--val]
+
+instead times kernel E at every tile that fits two CTAs per SM (th 8-64,
+tw 16 or 32, a ring of 2 or 3 boxes) at each of those shapes, and the
+chosen tile also with its boxes loaded by cp.async in place of TMA, checks
+each against the plain version, and prints per shape the tile that
+``pyramid_geometry`` chooses beside the fastest one and beside its
+cp.async form.
 
     python3 tools/torch_port_profile.py --sesp-sweep
 
@@ -140,40 +156,117 @@ def _sesp_calls(model, x):
     return calls
 
 
-def pyramid_device_time(model, x, iters):
-    """Kernel E's device ms per launch at each distinct pyramid shape of the
-    forward's SESP calls, with the v2 stage and without."""
+def pyramid_sets(model, x, val=False):
+    """Kernel E's operands by set, as ``chip_smoke.py`` phase 3b builds
+    them (``chip_smoke.pyramid_sets``) from this forward's SESP calls:
+    ``flagship``, every distinct pyramid shape (n, H, W, rates, stride;
+    their dw1 / dw2 and a seeded random map), each with and without the v2
+    stage; with ``val`` also ``val``, the same shapes at the batch and frame
+    width of ``Runner.val`` (8 x 1024 x 2048: B=8 and W doubled).  Each
+    entry is (label, red, dw1, dw2, rates, stride)."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    import chip_smoke
+    calls = [('sesp_block', None, a, kw) for a, kw in _sesp_calls(model, x)]
+    built = chip_smoke.pyramid_sets(calls, torch.Generator().manual_seed(0))
+    sets = {}
+    for name in ('flagship', 'val') if val else ('flagship',):
+        sets[name] = []
+        for _, _, (red, dw1, dw2, rates), kw in built[name]:
+            label = (f'{"x".join(map(str, red.shape))} rates {rates} stride '
+                     f'{kw["stride"]} v2 {dw2 is not None}')
+            sets[name].append((label, red, dw1, dw2, rates, kw['stride']))
+    return sets
+
+
+def pyramid_device_time(model, x, iters, val=False):
+    """Kernel E's device ms per launch at each operand of
+    :func:`pyramid_sets`, one profiler session per shape, read by the
+    names of E's device functions (``DEVICE_FUNCTIONS``)."""
+    from chip_smoke import device_ms
     from lednet_tpu_torch.ops.kernels import sesp_pyramid
-    gen = torch.Generator().manual_seed(0)
-    shapes = {}
-    for a, kw in _sesp_calls(model, x):
-        xx, dw1, dw2 = a[0], a[4], a[5]
-        shapes.setdefault((dw1.shape[1], *xx.shape[2:], tuple(kw['rates']),
-                           kw['stride']), (xx.shape[0], dw1, dw2))
-    launches = []
-    for (n, H, W, rates, stride), (B, dw1, dw2) in shapes.items():
-        red = torch.randn((B, n, H, W), generator=gen).cuda()
-        for d2 in (dw2, None):
-            launches.append(lambda red=red, dw1=dw1, d2=d2, rates=rates,
-                            stride=stride: sesp_pyramid(red, dw1, d2, rates,
-                                                        stride=stride,
-                                                        impl='cuda'))
-    for launch in launches:
-        launch()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            for launch in launches:
+    report = {}
+    for name, calls in pyramid_sets(model, x, val).items():
+        rows = []
+        for label, red, dw1, d2, rates, stride in calls:
+            def launch():
+                return sesp_pyramid(red, dw1, d2, rates, stride=stride,
+                                    impl='cuda')
+            ms, count = device_ms(launch, 'sesp_pyramid', iters, counts=True)
+            rows.append(dict(shape=label, launches=count, ms_per_launch=ms))
+            print(f'  [{name}] {label}: {ms:.4f} ms device time per launch '
+                  f'({count} launches)', flush=True)
+        total = sum(r['ms_per_launch'] for r in rows)
+        report[name] = dict(shapes=rows, sum_ms=total, ms_per_launch=total / len(rows))
+        print(f'[sesp_pyramid {name}] {total / len(rows):.4f} ms device time '
+              f'per launch, {total:.4f} ms over {len(rows)} shapes', flush=True)
+    return report
+
+
+def pyramid_sweep(model, x, val=False):
+    """Time kernel E at every tile that fits two CTAs per SM (th 8-64, tw
+    16 or 32, a ring of 2 or 3 boxes) at each operand of
+    :func:`pyramid_sets`, and the chosen tile's launch also with its boxes
+    loaded by cp.async in place of TMA; check each against the plain
+    version, and print per shape the chosen geometry's device time beside
+    the fastest one's and beside its cp.async form: the data behind
+    ``pyramid_geometry``'s rule and its choice of TMA."""
+    import torch
+    from chip_smoke import device_ms
+    kmod = sys.modules['lednet_tpu_torch.ops.kernels.sesp_pyramid']
+    report = {}
+    for name, calls in pyramid_sets(model, x, val).items():
+        rows = []
+        totals = {'chosen': 0.0, 'fastest': 0.0, 'chosen_cp_async': 0.0}
+        for label, red, dw1, d2, rates, stride in calls:
+            B, n, H, W = red.shape
+            k, v2 = len(rates), d2 is not None
+            H2, W2 = -(-H // stride), -(-W // stride)
+            ref = kmod.sesp_pyramid_plain(red, dw1, d2, rates, stride)
+            out = torch.empty_like(ref)
+
+            def timed(geo, what):
+                def launch():
+                    kmod.launch_pyramid(red, dw1, d2, out, rates, stride, geo)
+                out.fill_(float('nan'))
                 launch()
-        torch.cuda.synchronize()
-    evts = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
-            and 'lednet::sesp_pyramid_kernel' in e.key]
-    count = sum(e.count for e in evts)
-    return dict(shapes=len(launches), launches=count,
-                ms_per_launch=sum(_self_device_us(e) for e in evts) / 1e3 / count)
+                err = ((out - ref).abs().max() / ref.abs().max()).item()
+                if not err <= 1e-5:
+                    raise AssertionError(f'{label} {what}: rel {err:.3e}')
+                return device_ms(launch, 'sesp_pyramid')
+            chosen = kmod.pyramid_geometry(B, H, W, n, k, tuple(rates), stride,
+                                           v2)
+            times = {}
+            for tw in (16, 32):
+                for th in (8, 16, 32, 64):
+                    for stages in (2, 3):
+                        geo = kmod.pyramid_tile(B, H, W, n, rates, stride, v2,
+                                                th, tw, stages, W % 4 == 0)
+                        if (geo.ctas_per_sm < kmod.E_CTAS_PER_SM
+                                or max(geo.rh, geo.rw) > kmod.TMA_BOX_MAX
+                                or th > 2 * max(H2, 8) or tw > 2 * max(W2, 16)):
+                            continue
+                        times[(th, tw, stages)] = timed(geo, f'{th}x{tw}')
+            key = (chosen.th, chosen.tw, chosen.stages)
+            best = min(times, key=times.get)
+            cp_async = (timed(chosen._replace(tma=False), 'cp.async')
+                        if chosen.tma else times[key])
+            totals['chosen'] += times[key]
+            totals['fastest'] += times[best]
+            totals['chosen_cp_async'] += cp_async
+            rows.append(dict(shape=label, chosen=dict(tile=key, ms=times[key],
+                                                      tma=chosen.tma,
+                                                      cp_async_ms=cp_async),
+                             fastest=dict(tile=best, ms=times[best]),
+                             tiles=len(times)))
+            print(f'  [{name}] {label}: chosen {key} {times[key]:.4f} ms '
+                  f'({"TMA" if chosen.tma else "cp.async"}; by cp.async '
+                  f'{cp_async:.4f} ms), fastest {best} {times[best]:.4f} ms '
+                  f'of {len(times)} tiles', flush=True)
+        report[name] = dict(shapes=rows, **{f'{k}_ms': v for k, v in totals.items()})
+        print(f"[pyramid sweep {name}] chosen {totals['chosen']:.4f} ms, by "
+              f"cp.async {totals['chosen_cp_async']:.4f} ms, fastest "
+              f"{totals['fastest']:.4f} ms over {len(rows)} shapes", flush=True)
+    return report
 
 
 def sesp_sweep(model, x):
@@ -257,6 +350,15 @@ def main() -> int:
     ap.add_argument('--ops', metavar='FILE',
                     help='write every device op of each path, with its calls '
                          'per forward, to FILE as JSON')
+    ap.add_argument('--pyramid', action='store_true',
+                    help="only kernel E's device time per shape (no forward "
+                         'profiles)')
+    ap.add_argument('--val', action='store_true',
+                    help="also read kernel E at Runner.val's shapes (B=8, W "
+                         'doubled)')
+    ap.add_argument('--pyramid-sweep', action='store_true',
+                    help='time kernel E at every tile that fits, at its '
+                         'shapes (with --val also the val set), instead')
     ap.add_argument('--sesp-sweep', action='store_true',
                     help="time every launch geometry of kernel D's fused "
                          'launch at the SESP call sites instead')
@@ -287,6 +389,17 @@ def main() -> int:
               flush=True)
         return 0
     report = dict(card=card, size=args.size, iters=args.iters, paths=[])
+    if args.pyramid_sweep:
+        with torch.inference_mode():
+            report['pyramid_sweep'] = pyramid_sweep(model, x, args.val)
+        print(json.dumps(report), flush=True)
+        return 0
+    if args.pyramid:
+        with torch.inference_mode():
+            report['sesp_pyramid'] = pyramid_device_time(model, x, args.iters,
+                                                         args.val)
+        print(json.dumps(report), flush=True)
+        return 0
     paths = [('cuda', eager_forward(model, x, 'cuda')),
              ('plain', eager_forward(model, x, 'plain'))]
     if args.graph:
@@ -313,10 +426,8 @@ def main() -> int:
                       f"{t['name']}", flush=True)
     if args.config == CONFIG:
         with torch.inference_mode():
-            report['sesp_pyramid'] = e = pyramid_device_time(model, x, args.iters)
-        print(f"[sesp_pyramid] {e['ms_per_launch']:.4f} ms device time per "
-              f"launch over {e['launches']} launches at {e['shapes']} pyramid "
-              f"shapes", flush=True)
+            report['sesp_pyramid'] = pyramid_device_time(model, x, args.iters,
+                                                         args.val)
     if args.ops:
         with open(args.ops, 'w') as f:
             json.dump(dict(card=card, size=args.size, paths=ops), f, indent=1)
