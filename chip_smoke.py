@@ -144,14 +144,26 @@ printing one flushed line with its seconds:
    x 256x256 on the card (cuDNN off) against the CPU's within phase 6's
    bounds in float64, and in float32 with the step's discrete decisions
    (OHEM's kept pixels, ReLU signs, max pool choices) pinned to the CPU
-   float64 step's, its weights within phase 6's bounds of float64 (the
-   loss and BatchNorm stats printed beside the CPU float32 step's own
-   distance; the elements each float32 step decides otherwise, unpinned,
-   counted), BiSeNetV1 with dropout 0 in every head for this comparison
-   only (two RNG streams cannot drop the same units); DDRNet-23-slim
-   through ``tools/torch_port_train.py`` (20 steps, one val) on a tree of 6
-   + 2 2048x1024 frames, its iteration time and loader wait from the log,
-   and ``tools/torch_port_test.py`` on ``iter_20.pth`` equal to that val.
+   float64 step's, its loss, weights and BatchNorm stats each within the
+   larger of phase 6's bound and 3x the CPU float32 step's own distance
+   from float64 on the same inputs and decisions, on all threads or on one
+   (``float32_bounds``; the
+   elements each float32 step decides otherwise, unpinned, counted),
+   BiSeNetV1 with dropout 0 in every head for this comparison only (two
+   RNG streams cannot drop the same units); DDRNet-23-slim through
+   ``tools/torch_port_train.py`` (20 steps, one val) on a tree of 6 + 2
+   2048x1024 frames, its iteration time and loader wait from the log, and
+   ``tools/torch_port_test.py`` on ``iter_20.pth`` equal to that val;
+11. PIDNet and STDC: phase 10's checks of PIDNet-S and STDC1
+   (``configs/pidnet/``, ``configs/stdc/``, unchanged) at full width and bs
+   1 at 1024x1024 (A exact at float32 output, A once per forward and B-E
+   never, kernel path and TF32 defaults against module forms, replay
+   against eager, both timed); PIDNet-M, PIDNet-L and STDC2 one replayed
+   forward each against eager; train steps at the configs' batches
+   (PIDNet-S 6 x 1024x1024 with edge maps from ``GenerateEdge``, STDC1 12
+   x 512x1024); the card's step against the CPU's at 2 x 256x256 with
+   dropout 0 (float64; float32 with PIDHead's boundary gate pinned
+   too); PIDNet-S through the train and test CLIs on phase 10's tree.
 
 It prints the card line and a ``{"kernels": [...]}`` line (``launches``:
 the wrappers' count in phase 4; ``device_launches``: the CUDA launches the
@@ -161,7 +173,9 @@ device trace saw there; ``entry_point_launches`` and
 test + TTA run; ``branch_max_abs_err``: the kernel's largest error against
 its plain version over phase 9's shapes; ``zoo_launches``,
 ``zoo_device_launches``: the same of phase 10's ``inference_model`` runs,
-``zoo_max_abs_err``: A's at float32 output; E's row also has
+``zoo_max_abs_err``: A's at float32 output; ``pid_stdc_launches``,
+``pid_stdc_device_launches``, ``pid_stdc_max_abs_err``: the same of phase
+11; E's row also has
 ``device_ms`` and ``cudnn_composition_ms`` per call at the flagship set,
 and ``val_ms``, ``val_plain_ms``, ``val_bound_ms``, ``val_device_ms`` and
 ``val_cudnn_composition_ms`` at the val set, all measured in this run),
@@ -207,10 +221,17 @@ BRANCH_TTA_RATIOS = (0.5, 0.75, 1.0, 1.25, 1.5, 1.75)   # apple_branch.py
 # phase 10: the paper's two same-val baselines at their configs' widths
 ZOO = (('DDRNet-23-slim', 'configs/ddrnet/ddrnet_23-slim_cityscapes-1024x1024.py'),
        ('BiSeNetV1 R-18', 'configs/bisenetv1/bisenetv1_r18-d32_cityscapes-1024x1024.py'))
-ZOO_WIDE = ('DDRNet-23', 'configs/ddrnet/ddrnet_23_cityscapes-1024x1024.py')
+ZOO_WIDE = (('DDRNet-23', 'configs/ddrnet/ddrnet_23_cityscapes-1024x1024.py'),)
 ZOO_IMAGES = 2
 ZOO_TREE_TRAIN, ZOO_TREE_VAL = 6, 2
 ZOO_ITERS = 20
+# phase 11: the next rows of the paper's speed table, PIDNet and STDC, at
+# their configs' widths (PIDNet-S and STDC1 in full; the wider ones once)
+PID_STDC = (('PIDNet-S', 'configs/pidnet/pidnet-s_cityscapes-1024x1024.py'),
+            ('STDC1', 'configs/stdc/stdc1_cityscapes-512x1024.py'))
+PID_STDC_WIDE = (('PIDNet-M', 'configs/pidnet/pidnet-m_cityscapes-1024x1024.py'),
+                 ('PIDNet-L', 'configs/pidnet/pidnet-l_cityscapes-1024x1024.py'),
+                 ('STDC2', 'configs/stdc/stdc2_cityscapes-512x1024.py'))
 CE_LOSSES = [dict(type='CrossEntropyLoss', loss_weight=1.0),
              dict(type='CrossEntropyLoss', loss_weight=0.4)]
 MIN_ARGMAX_AGREEMENT = 0.999
@@ -574,19 +595,49 @@ def check_against_plain(name, op, args, kw, tol, errs, log=True):
         errs.append(e_abs)
 
 
-def train_batch(rng, n, size):
-    """n seeded BGR uint8 crops (n, size, size, 3) and int64 labels of the
-    19 classes with about 2% at 255 (ignored)."""
+def train_batch(rng, n, size, edges=None):
+    """n seeded BGR uint8 crops of ``size`` (h, w), or size x size, and int64
+    labels of the 19 classes with about 2% at 255 (ignored).  With
+    ``edges`` (``GenerateEdge``'s width, for PIDNet) the labels come in
+    32-pixel blocks, about 5% of them ignored, as a dict with the
+    ``gt_edge_map`` that ``GenerateEdge`` gives them."""
     import torch
-    imgs = rng.integers(0, 256, (n, size, size, 3), dtype=np.uint8)
-    lbl = np.where(rng.random((n, size, size)) < 0.02, 255,
-                   rng.integers(0, 19, (n, size, size)))
-    return torch.from_numpy(imgs), torch.from_numpy(lbl.astype(np.int64))
+    h, w = (size, size) if isinstance(size, int) else size
+    imgs = torch.from_numpy(rng.integers(0, 256, (n, h, w, 3), dtype=np.uint8))
+    if edges is None:
+        lbl = np.where(rng.random((n, h, w)) < 0.02, 255,
+                       rng.integers(0, 19, (n, h, w)))
+        return imgs, torch.from_numpy(lbl.astype(np.int64))
+    from lednet_tpu_torch.datasets.transforms import GenerateEdge
+    coarse = (n, -(-h // 32), -(-w // 32))
+    lbl = np.where(rng.random(coarse) < 0.05, 255,
+                   rng.integers(0, 19, coarse))
+    lbl = np.ascontiguousarray(lbl.repeat(32, 1).repeat(32, 2)[:, :h, :w])
+    generate = GenerateEdge(edge_width=edges)
+    edge = np.stack([generate({'gt_seg_map': m})['gt_edge_map'] for m in lbl])
+    return imgs, dict(gt_seg_map=torch.from_numpy(lbl.astype(np.int64)),
+                      gt_edge_map=torch.from_numpy(edge.astype(np.int64)))
+
+
+def edge_width(cfg):
+    """The width of ``GenerateEdge`` in ``cfg``'s train pipeline, or None."""
+    for t in cfg.get('train_pipeline') or []:
+        if t['type'] == 'GenerateEdge':
+            return t.get('edge_width', 3)
+    return None
+
+
+def to_device(labels, device):
+    """Labels, or a dict of label maps, on ``device``."""
+    if isinstance(labels, dict):
+        return {k: v.to(device) for k, v in labels.items()}
+    return labels.to(device)
 
 
 def train_once(cfg, device, imgs, lbl, seed, dtype=None):
     """One train step of a seeded model of ``cfg`` on ``device`` (its
-    weights cast to ``dtype`` if given): (loss, state_dict on the CPU)."""
+    weights cast to ``dtype`` if given): (loss, state_dict on the CPU).
+    ``lbl``: labels or a dict of label maps."""
     import torch
     from lednet_tpu_torch.apis import init_model
     from lednet_tpu_torch.engine import (build_optimizer, create_train_state,
@@ -598,7 +649,7 @@ def train_once(cfg, device, imgs, lbl, seed, dtype=None):
     opt, sched = build_optimizer(model, cfg.optim_wrapper, cfg.param_scheduler)
     step = make_train_step(model, opt, model.data_preprocessor)
     _, logs = step(create_train_state(model, opt, sched), imgs.to(device),
-                   lbl.to(device))
+                   to_device(lbl, device))
     return logs['loss'].item(), {k: v.detach().cpu()
                                  for k, v in model.state_dict().items()}
 
@@ -644,14 +695,18 @@ def hold_train(name, card, cpu, bounds):
 @contextlib.contextmanager
 def decisions(kept, flips=None, pin=False):
     """A train step's discrete decisions: the pixels each OHEM loss keeps,
-    the sign of each ReLU's input, each max pool's choice.  Inside, with
-    ``flips`` None, each is appended to ``kept`` in call order; else
-    ``flips[kind]`` counts where the step decides otherwise than the next of
-    ``kept``, and with ``pin`` the step follows ``kept``."""
+    the sign of each ReLU's input, each max pool's choice, and PIDHead's
+    boundary gate (the pixels whose ``sigmoid(d) > 0.8`` keep their label in
+    its fourth loss).  Inside, with ``flips`` None, each is appended to
+    ``kept`` in call order; else ``flips[kind]`` counts where the step
+    decides otherwise than the next of ``kept``, and with ``pin`` the step
+    follows ``kept``."""
     import torch
     import torch.nn.functional as F
+    from lednet_tpu_torch.models.decode_heads.pid_head import PIDHead
     from lednet_tpu_torch.models.losses.cross_entropy import OhemCrossEntropy
     threshold, relu, max_pool = OhemCrossEntropy.threshold, F.relu, F.max_pool2d
+    boundary_gate = PIDHead.boundary_gate
     recorded = iter(list(kept))
 
     def decide(kind, own):
@@ -679,34 +734,65 @@ def decisions(kept, flips=None, pin=False):
         idx = decide('max_pool', idx)
         out = x.flatten(2).gather(2, idx.flatten(2)).view_as(out)
         return (out, idx) if return_indices else out
+
+    def gate(self, d_logit):
+        return decide('gate', boundary_gate(self, d_logit))
     OhemCrossEntropy.threshold, F.relu, F.max_pool2d = ohem, rectify, pool
+    PIDHead.boundary_gate = gate
     try:
         yield
     finally:
         OhemCrossEntropy.threshold, F.relu, F.max_pool2d = (threshold, relu,
                                                             max_pool)
+        PIDHead.boundary_gate = boundary_gate
 
 
-def hold_float32(name, card, cpu, exact):
+def float32_bounds(cpu_loss, cpu_weights, cpu_stats):
+    """The bounds of a float32 step's distance from float64: of its |loss
+    diff|, and of its weights' and BatchNorm stats' largest shares of
+    TOL_TRAIN_WEIGHT and TOL_TRAIN_MEAN / TOL_TRAIN_VAR.  Each is the
+    larger of phase 6's bound and 3 x the CPU float32 step's own distance
+    on the same inputs and decisions (``cpu_*``: the larger of its runs on
+    all threads and on one, two orders of its sums).  The loss and the running
+    means are forward sums of large activations, and a model's float32
+    gradients carry its forward's rounding: on either device that alone
+    can pass phase 6's absolute bounds (the CPU misses PIDNet-S's
+    ``spp.processes`` running mean; STDC1's gradients on the card are
+    2-2.5x less exact than the CPU's from the logits down,
+    ``tools/torch_port_train_gap.py --grad-trace``)."""
+    return (max(TOL_TRAIN_LOSS, 3 * cpu_loss), max(1.0, 3 * cpu_weights),
+            max(1.0, 3 * cpu_stats))
+
+
+def hold_float32(name, card, cpu_runs, exact):
     """Hold a float32 train step on the card, its decisions pinned, to the
-    float64 one: every weight within TOL_TRAIN_WEIGHT.  The loss and the
-    BatchNorm stats, forward sums of large activations, are printed against
-    their bounds beside the CPU float32 step's own distance from float64."""
-    lines = {}
-    for who, run in (('the card', card), ('the CPU', cpu)):
+    float64 one (``exact``): its loss, weights and BatchNorm stats within
+    :func:`float32_bounds` of the CPU float32 steps' (``cpu_runs``: the same
+    step on all threads and on one) largest distance from the same float64
+    step."""
+    def distance(run):
         dl, _, _, shares = train_distance(run, exact)
-        lines[who] = (dl, max(r for r, k in shares if 'running' not in k),
-                      max(r for r, k in shares if 'running' in k), shares)
-    _, weights, _, shares = lines['the card']
-    say(f'  {name}, float32 vs the CPU float64, as shares of phase 6\'s '
-        'bounds: ' + '; '.join(
-            f'{who} |loss diff| {v[0]:.3e} (tol {TOL_TRAIN_LOSS:g}), weights '
-            f'{v[1]:.3f}, BatchNorm stats {v[2]:.3f}' for who, v in
-            lines.items()) + '; the card\'s nearest: ' + ', '.join(
-            f'{k} {r:.3f}' for r, k in shares[:3]) + '; held: weights')
-    if weights > 1.0:
-        raise AssertionError(f'{name}: the card\'s float32 weights stray '
-                             'from float64')
+        return (dl, max(r for r, k in shares if 'running' not in k),
+                max(r for r, k in shares if 'running' in k), shares)
+    loss, weights, stats, shares = distance(card)
+    cpu_loss, cpu_weights, cpu_stats = (max(d) for d in zip(
+        *(distance(run)[:3] for run in cpu_runs)))
+    bounds = float32_bounds(cpu_loss, cpu_weights, cpu_stats)
+    say(f'  {name}, float32 vs the CPU float64 (the CPU: the larger of its '
+        f'float32 steps on all threads and on one): |loss diff| the card '
+        f'{loss:.3e}, the CPU {cpu_loss:.3e} (bound {bounds[0]:.3e}); as '
+        f'shares of phase 6\'s bounds, weights the card {weights:.3f}, the '
+        f'CPU {cpu_weights:.3f} (bound {bounds[1]:.3f}), BatchNorm stats the '
+        f'card {stats:.3f}, the CPU {cpu_stats:.3f} (bound {bounds[2]:.3f}); '
+        'the card\'s nearest: ' + ', '.join(
+            f'{k} {r:.3f}' for r, k in shares[:3]) +
+        '; held: loss, weights, BatchNorm stats')
+    strays = [what for what, v, bound in zip(
+        ('loss', 'weights', 'BatchNorm stats'), (loss, weights, stats), bounds)
+              if not v <= bound]
+    if strays:
+        raise AssertionError(f'{name}: the card\'s float32 {", ".join(strays)} '
+                             'stray from float64')
 
 
 def randomize_norms(model, gen):
@@ -1244,11 +1330,27 @@ def branch_path(card, expected):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def zoo_models(card):
-    """Phase 10, inference and training: DDRNet-23-slim and BiSeNetV1 R-18
-    at their configs' widths (seeded weights, non-trivial BatchNorm stats);
-    returns the kernels' wrapper launches and device launches of their main
-    path and kernel A's largest error at float32 output."""
+def without_dropout(cfg):
+    """cfg options that set dropout 0 in the decode head and every
+    auxiliary head where the config has some (two RNG streams cannot drop
+    the same units), and a note saying so ('' when none had any)."""
+    heads = [cfg.model.decode_head] + list(cfg.model.get('auxiliary_head') or [])
+    if not any(h.get('dropout_ratio', 0.1) for h in heads):
+        return {}, ''
+    extra = {'model.decode_head.dropout_ratio': 0.0}
+    if cfg.model.get('auxiliary_head'):
+        extra['model.auxiliary_head'] = [dict(h, dropout_ratio=0.0)
+                                         for h in cfg.model.auxiliary_head]
+    return extra, ', dropout 0 in every head for this comparison only'
+
+
+def zoo_models(card, models=ZOO, wide=ZOO_WIDE):
+    """Phases 10 and 11, inference and training of ``models`` at their
+    configs' widths (seeded weights, non-trivial BatchNorm stats; phase 10:
+    DDRNet-23-slim and BiSeNetV1 R-18, phase 11: PIDNet-S and STDC1), and
+    one forward of each of ``wide``; returns the kernels' wrapper launches
+    and device launches of their main path and kernel A's largest error at
+    float32 output."""
     import torch
     from lednet_tpu_torch.apis import inference_model, init_model
     from lednet_tpu_torch.config import Config
@@ -1264,7 +1366,7 @@ def zoo_models(card):
     x_val = torch.randint(0, 256, VAL_SHAPE + (3,), generator=gen,
                           dtype=torch.uint8).cuda()
     launches, device, a_errs = {}, {}, []
-    for label, config in ZOO:
+    for label, config in models:
         model = init_model(config, device='cuda', generator=gen)
         randomize_norms(model, gen)
         pre = model.data_preprocessor
@@ -1337,7 +1439,7 @@ def zoo_models(card):
             f'{replay_ms:.3f} ms ({1000 / replay_ms:.1f} img/s); on {card}')
         say(f'  {label} forward 1x{SIZE}x{SIZE}: eager kernel path '
             f'{eager_ms:.3f} ms ({1000 / eager_ms:.1f} img/s); on {card}')
-        if label == ZOO[0][0]:
+        if label == models[0][0]:
             calls = []
             with recording(calls), torch.inference_mode():
                 pre(x_dev, impl='cuda')
@@ -1351,34 +1453,37 @@ def zoo_models(card):
         del model, step, res, plain, tf32
         torch.cuda.empty_cache()
 
-    # DDRNet-23 (c=64) once, eager and replayed
-    label, config = ZOO_WIDE
-    model = init_model(config, device='cuda', generator=gen)
-    randomize_norms(model, gen)
-    step = make_eval_step(model, model.data_preprocessor)
-    with torch.inference_mode():
-        x, _, _ = model.data_preprocessor(x_dev)
-        check_logits(f'{label} replay vs eager kernel path', step(x_dev),
-                     model.predict(x))
-        replay_ms = cuda_ms(lambda: step(x_dev), reps=1, warmup=0)
-        eager_ms = cuda_ms(lambda: model.predict(
-            model.data_preprocessor(x_dev)[0]), reps=1, warmup=0)
-    say(f'  {label} forward 1x{SIZE}x{SIZE}, one call each: replayed graph '
-        f'{replay_ms:.3f} ms, eager {eager_ms:.3f} ms; on {card}')
-    del model, step, x
-    torch.cuda.empty_cache()
+    # the wider variants once each, eager and replayed
+    for label, config in wide:
+        model = init_model(config, device='cuda', generator=gen)
+        randomize_norms(model, gen)
+        step = make_eval_step(model, model.data_preprocessor)
+        with torch.inference_mode():
+            x, _, _ = model.data_preprocessor(x_dev)
+            check_logits(f'{label} replay vs eager kernel path', step(x_dev),
+                         model.predict(x))
+            replay_ms = cuda_ms(lambda: step(x_dev), reps=1, warmup=0)
+            eager_ms = cuda_ms(lambda: model.predict(
+                model.data_preprocessor(x_dev)[0]), reps=1, warmup=0)
+        say(f'  {label} forward 1x{SIZE}x{SIZE}, one call each: replayed '
+            f'graph {replay_ms:.3f} ms, eager {eager_ms:.3f} ms; on {card}')
+        del model, step, x
+        torch.cuda.empty_cache()
 
-    # training: the config's batch at 1024x1024, then the card's step
+    # training: the config's batch at its crop size, then the card's step
     # against the CPU's
-    for label, config in ZOO:
+    for label, config in models:
         cfg = Config.fromfile(config)
         batch = cfg.train_dataloader.batch_size
+        crop = tuple(cfg.model.data_preprocessor.size)
+        edges = edge_width(cfg)
         train_model = init_model(cfg, device='cuda', generator=gen)
         opt, sched = build_optimizer(train_model, cfg.optim_wrapper,
                                      cfg.param_scheduler)
         train = make_train_step(train_model, opt, train_model.data_preprocessor)
         state = create_train_state(train_model, opt, sched)
-        t_imgs, t_lbl = (t.cuda() for t in train_batch(rng, batch, SIZE))
+        t_imgs, t_lbl = train_batch(rng, batch, crop, edges)
+        t_imgs, t_lbl = t_imgs.cuda(), to_device(t_lbl, 'cuda')
         torch.cuda.reset_peak_memory_stats()
         held = torch.cuda.memory_allocated()
         times = []
@@ -1396,7 +1501,8 @@ def zoo_models(card):
         say(f'  {label} step {state.step} logs: ' + ', '.join(
             f'{k} {v:.5f}' for k, v in vals.items()))
         ms = sum(times[1:]) / TRAIN_STEPS
-        say(f'  {label} train step, bs {batch} at {SIZE}x{SIZE} (TF32 off): '
+        say(f'  {label} train step, bs {batch} at {crop[0]}x{crop[1]}'
+            f'{" with edge maps" if edges else ""} (TF32 off): '
             f'{ms:.3f} ms/step ({batch * 1000 / ms:.2f} img/s) over '
             f'{TRAIN_STEPS} steps after a warm-up; on {card}')
         say(f'  {label} train step peak memory allocated: '
@@ -1406,23 +1512,18 @@ def zoo_models(card):
         del train_model, opt, train, state, t_imgs, t_lbl, logs
         torch.cuda.empty_cache()
 
-        extra = {'model.data_preprocessor.size': (256, 256)}
-        note = ''
-        if cfg.model.get('auxiliary_head'):
-            # dropout draws from two RNG streams that cannot match
-            extra.update({'model.decode_head.dropout_ratio': 0.0,
-                          'model.auxiliary_head': [
-                              dict(h, dropout_ratio=0.0)
-                              for h in cfg.model.auxiliary_head]})
-            note = ', dropout 0 in every head for this comparison only'
+        extra, note = without_dropout(cfg)
+        extra['model.data_preprocessor.size'] = (256, 256)
         cfg.merge_from_dict(extra)
-        s_imgs, s_lbl = train_batch(np.random.default_rng(SEED + 11), 2, 256)
+        s_imgs, s_lbl = train_batch(np.random.default_rng(SEED + 11), 2, 256,
+                                    edges)
         # float64 holds the step's arithmetic to phase 6's bounds.  A float32
         # step is held with its discrete decisions (OHEM's kept pixels, ReLU
-        # signs, max pool choices) pinned to the CPU float64 step's: a value
-        # within rounding of a threshold or kink decides otherwise, a jump
-        # of the step, not an error.  Its weights are held to float64 within
-        # phase 6's bounds
+        # signs, max pool choices, PIDHead's boundary gate) pinned to the CPU
+        # float64 step's: a value within rounding of a threshold or kink
+        # decides otherwise, a jump of the step, not an error.  Its loss,
+        # weights and BatchNorm stats are held to float64 within
+        # float32_bounds
         runs, kept, flips = {}, [], {}
         with decisions(kept):
             runs['cpu', torch.float64] = train_once(cfg, 'cpu', s_imgs, s_lbl,
@@ -1438,7 +1539,8 @@ def zoo_models(card):
                                                    SEED + 11, dtype)
         cpu64 = runs['cpu', torch.float64]
         say(f'  {label} one step, 2x256x256: of {len(kept)} calls that decide '
-            '(OHEM, ReLU, max pool), elements decided otherwise than in the '
+            '(OHEM, ReLU, max pool, boundary gate), elements decided '
+            'otherwise than in the '
             'CPU float64 step: ' + '; '.join(
                 f'{which} {flips[key]}' for which, key in (
                     ('the CPU float32', ('cpu', torch.float32, True)),
@@ -1455,70 +1557,93 @@ def zoo_models(card):
             f'{dl:.3e}, max |diff| weights {dw:.3e}, BatchNorm stats {ds:.3e}; '
             'nearest their bound: ' + ', '.join(f'{k} {r:.3f}'
                                                 for r, k in shares[:3]))
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        try:
+            with decisions(kept, {}, True):
+                cpu_one = train_once(cfg, 'cpu', s_imgs, s_lbl, SEED + 11,
+                                     torch.float32)
+        finally:
+            torch.set_num_threads(threads)
         hold_float32(f'{label} one step, 2x256x256, decisions pinned{note}',
                      runs['cuda', torch.float32, True],
-                     runs['cpu', torch.float32, True], cpu64)
+                     (runs['cpu', torch.float32, True], cpu_one), cpu64)
     return launches, device, max(a_errs)
 
 
-def zoo_entry_points(card):
-    """Phase 10, entry points: DDRNet-23-slim through the train CLI
-    (``ZOO_ITERS`` steps, one val at the end) and the test CLI on the last
-    checkpoint, which must equal that val."""
+@contextlib.contextmanager
+def zoo_tree():
+    """The fabricated Cityscapes tree of phases 10 and 11
+    (``ZOO_TREE_TRAIN`` + ``ZOO_TREE_VAL`` 2048x1024 frames) in a temporary
+    directory, removed after: yields that directory, the tree being its
+    ``cityscapes``."""
     import shutil
     import tempfile
     from lednet_tpu_torch.datasets.synthetic import make_cityscapes_tree
-
-    label, config = ZOO[0]
     tmp = tempfile.mkdtemp(prefix='lednet_zoo_')
     try:
         t0 = time.perf_counter()
-        data = make_cityscapes_tree(os.path.join(tmp, 'cityscapes'),
-                                    n_train=ZOO_TREE_TRAIN, n_val=ZOO_TREE_VAL,
-                                    size_hw=FRAME_HW, seed=SEED + 10)
+        make_cityscapes_tree(os.path.join(tmp, 'cityscapes'),
+                             n_train=ZOO_TREE_TRAIN, n_val=ZOO_TREE_VAL,
+                             size_hw=FRAME_HW, seed=SEED + 10)
         say(f'  fabricated {ZOO_TREE_TRAIN} train and {ZOO_TREE_VAL} val '
             f'frames at {FRAME_HW[1]}x{FRAME_HW[0]} in '
             f'{time.perf_counter() - t0:.2f} s')
-        options = [f'{k}.dataset.data_root={data}' for k in
-                   ('train_dataloader', 'val_dataloader', 'test_dataloader')]
-        work = os.path.join(tmp, 'work')
-        t0 = time.perf_counter()
-        iters, vals = train_log(run_cli(
-            ['tools/torch_port_train.py', config, '--work-dir', work,
-             '--cfg-options', *options, f'train_cfg.max_iters={ZOO_ITERS}',
-             f'train_cfg.val_interval={ZOO_ITERS}',
-             f'default_hooks.checkpoint.interval={ZOO_ITERS}',
-             'default_hooks.logger.interval=5']))
-        say(f'  {label} train CLI, {ZOO_ITERS} steps: '
-            f'{time.perf_counter() - t0:.2f} s; loss at ' +
-            ', '.join(f'{k}: {v[0]:.4f}' for k, v in iters.items()) +
-            f'; val at {sorted(vals)}: {vals.get(ZOO_ITERS)}')
-        if sorted(iters) != list(range(5, ZOO_ITERS + 1, 5)) or not all(
-                np.isfinite(v[0]) for v in iters.values()) or \
-                sorted(vals) != [ZOO_ITERS]:
-            raise AssertionError(f'train log {iters}, val at {sorted(vals)}')
-        steady = [iters[k] for k in iters if k > 5]
-        it_s = sum(v[1] for v in steady) / len(steady)
-        wait_s = sum(v[2] for v in steady) / len(steady)
-        say(f'  {label} train iteration (the CLI\'s log, steps 6-{ZOO_ITERS}, '
-            f'bs 6 of 1024x1024 crops, 4 loader threads): {it_s * 1e3:.1f} ms; '
-            f'on {card}')
-        say(f'  {label} of it waiting on the loader: {wait_s * 1e3:.1f} ms; '
-            f'on {card}')
-        t0 = time.perf_counter()
-        lines = run_cli(['tools/torch_port_test.py', config,
-                         os.path.join(work, f'iter_{ZOO_ITERS}.pth'),
-                         '--work-dir', os.path.join(tmp, 'test'),
-                         '--cfg-options', *options])
-        tested = json.loads(lines[-1])
-        say(f'  {label} test CLI on iter_{ZOO_ITERS}.pth: '
-            f'{time.perf_counter() - t0:.2f} s; {tested} (val at step '
-            f'{ZOO_ITERS}: {vals[ZOO_ITERS]})')
-        if tested != vals[ZOO_ITERS]:
-            raise AssertionError(f'the test CLI does not reproduce the val at '
-                                 f'step {ZOO_ITERS}')
+        yield tmp
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def zoo_entry_points(card, tmp, label, config):
+    """Phases 10 and 11, entry points: ``config`` through the train CLI
+    (``ZOO_ITERS`` steps, one val at the end) on the tree of
+    :func:`zoo_tree` in ``tmp``, and the test CLI on the last checkpoint,
+    which must equal that val."""
+    from lednet_tpu_torch.config import Config
+
+    cfg = Config.fromfile(config)
+    crop = tuple(cfg.model.data_preprocessor.size)
+    loader = cfg.train_dataloader
+    data = os.path.join(tmp, 'cityscapes')
+    options = [f'{k}.dataset.data_root={data}' for k in
+               ('train_dataloader', 'val_dataloader', 'test_dataloader')]
+    work = os.path.join(tmp, 'work_' + label.replace(' ', '_'))
+    t0 = time.perf_counter()
+    iters, vals = train_log(run_cli(
+        ['tools/torch_port_train.py', config, '--work-dir', work,
+         '--cfg-options', *options, f'train_cfg.max_iters={ZOO_ITERS}',
+         f'train_cfg.val_interval={ZOO_ITERS}',
+         f'default_hooks.checkpoint.interval={ZOO_ITERS}',
+         'default_hooks.logger.interval=5']))
+    say(f'  {label} train CLI, {ZOO_ITERS} steps: '
+        f'{time.perf_counter() - t0:.2f} s; loss at ' +
+        ', '.join(f'{k}: {v[0]:.4f}' for k, v in iters.items()) +
+        f'; val at {sorted(vals)}: {vals.get(ZOO_ITERS)}')
+    if sorted(iters) != list(range(5, ZOO_ITERS + 1, 5)) or not all(
+            np.isfinite(v[0]) for v in iters.values()) or \
+            sorted(vals) != [ZOO_ITERS]:
+        raise AssertionError(f'train log {iters}, val at {sorted(vals)}')
+    steady = [iters[k] for k in iters if k > 5]
+    it_s = sum(v[1] for v in steady) / len(steady)
+    wait_s = sum(v[2] for v in steady) / len(steady)
+    say(f'  {label} train iteration (the CLI\'s log, steps 6-{ZOO_ITERS}, '
+        f'bs {loader.batch_size} of {crop[0]}x{crop[1]} crops, '
+        f'{loader.get("num_workers", 2)} loader threads): '
+        f'{it_s * 1e3:.1f} ms; on {card}')
+    say(f'  {label} of it waiting on the loader: {wait_s * 1e3:.1f} ms; '
+        f'on {card}')
+    t0 = time.perf_counter()
+    lines = run_cli(['tools/torch_port_test.py', config,
+                     os.path.join(work, f'iter_{ZOO_ITERS}.pth'),
+                     '--work-dir', os.path.join(work, 'test'),
+                     '--cfg-options', *options])
+    tested = json.loads(lines[-1])
+    say(f'  {label} test CLI on iter_{ZOO_ITERS}.pth: '
+        f'{time.perf_counter() - t0:.2f} s; {tested} (val at step '
+        f'{ZOO_ITERS}: {vals[ZOO_ITERS]})')
+    if tested != vals[ZOO_ITERS]:
+        raise AssertionError(f'the test CLI does not reproduce the val at '
+                             f'step {ZOO_ITERS}')
 
 
 # ---------------------------------------------------------------- phases
@@ -1905,9 +2030,14 @@ def main() -> int:
         entry_launches, entry_device = entry_points(model, card, per_forward)
     with phase('9 branch'):
         branch_launches, branch_device, branch_errs = branch_path(card, per_forward)
-    with phase('10 zoo'):
-        zoo_launches, zoo_device, zoo_a_err = zoo_models(card)
-        zoo_entry_points(card)
+    with zoo_tree() as tree:
+        with phase('10 zoo'):
+            zoo_launches, zoo_device, zoo_a_err = zoo_models(card)
+            zoo_entry_points(card, tree, *ZOO[0])
+        with phase('11 pidnet stdc'):
+            pid_launches, pid_device, pid_a_err = zoo_models(
+                card, PID_STDC, PID_STDC_WIDE)
+            zoo_entry_points(card, tree, *PID_STDC[0])
     for row in rows:
         row['entry_point_launches'] = entry_launches[row['name']]
         row['entry_point_device_launches'] = entry_device[row['name']]
@@ -1918,6 +2048,10 @@ def main() -> int:
         row['zoo_device_launches'] = zoo_device[row['name']]
         row['zoo_max_abs_err'] = (zoo_a_err if row['name'] == 'normalize_image'
                                   else None)
+        row['pid_stdc_launches'] = pid_launches[row['name']]
+        row['pid_stdc_device_launches'] = pid_device[row['name']]
+        row['pid_stdc_max_abs_err'] = (pid_a_err if row['name'] ==
+                                       'normalize_image' else None)
 
     say(card)
     say(json.dumps({'kernels': rows}))

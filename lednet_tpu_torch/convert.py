@@ -13,16 +13,22 @@ The port's modules carry the flax module names, so the mapping is by path:
 - the segmentor's ``_backbone``/``_decode_head`` lose the leading
   underscore, and its auxiliary heads ``_aux_heads_{i}`` become
   ``aux_heads.{i}``;
-- the trunk that ``BiSeNetV1`` builds inline, which flax names after its
-  class (``ResNet_0``, ``ResNetV1c_0``), is ``backbone``.
+- the trunk that ``BiSeNetV1`` and ``STDCContextPathNet`` build inline,
+  which flax names after its class (``ResNet_0``, ``ResNetV1c_0``,
+  ``STDCNet_0``), is ``backbone``.
 
 Every other module keeps its name: ``_Stage``'s ``block{i}``, ResNet's
 ``stem``/``stem{i}`` and ``layer{i}_{j}``, DAPPM's ``scale{i}`` /
-``process{i}`` / ``compression`` / ``shortcut``, BiSeNetV1's
-``spatial_path`` / ``arm16`` / ``arm32`` / ``ffm`` / ``gap_conv`` /
-``conv_head16`` / ``conv_head32``, FCNHead's ``conv{i}`` / ``conv_cat`` /
-``cls``.  Any other automatic flax name (``ClassName_{n}``) has no
-counterpart in the port and raises.
+``process{i}`` / ``compression`` / ``shortcut`` (PAPPM's grouped
+``processes``), BiSeNetV1's ``spatial_path`` / ``arm16`` / ``arm32`` /
+``ffm`` / ``gap_conv`` / ``conv_head16`` / ``conv_head32``, PIDNet's
+``pag_{i}`` / ``diff_{i}`` / ``{i,p,d}_layer{n}`` / ``spp`` / ``dfm`` and
+PIDHead's ``{i,p,d}_head`` / ``{,p_,d_}cls_seg``, STDCNet's
+``stage{s}_{j}`` (``conv{i}`` / ``downsample`` / ``skip_dw`` /
+``skip_pw``), STDCContextPathNet's ``conv_avg`` / ``arm{i}`` / ``conv{i}``
+/ ``ffm`` (``conv0`` / ``attn1`` / ``attn2``), FCNHead's ``conv{i}`` /
+``conv_cat`` / ``cls``.  Any other automatic flax name (``ClassName_{n}``)
+has no counterpart in the port and raises.
 
 A checkpoint file is a ``.npz`` whose keys are ``'/'``-joined paths under a
 ``params/`` or ``batch_stats/`` root (see :func:`save_npz_variables`).
@@ -46,7 +52,7 @@ def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tupl
 
 
 _AUTO_NAME = re.compile(r'[A-Z][A-Za-z0-9]*_\d+')
-_TRUNK = re.compile(r'ResNet(V1c)?_0')
+_TRUNK = re.compile(r'(ResNet(V1c)?|STDCNet)_0')
 _AUX_HEAD = re.compile(r'aux_heads_(\d+)')
 
 

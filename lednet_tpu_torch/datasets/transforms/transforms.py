@@ -2,14 +2,16 @@
 
 Counterpart of ``lednet_tpu/datasets/transforms/transforms.py`` (``Resize``
 :48, ``RandomResize`` :89, ``RandomCrop`` :131, ``RandomFlip`` :169,
-``PhotoMetricDistortion`` :340).  Two differences, both in how, not what:
+``PhotoMetricDistortion`` :340, ``GenerateEdge`` :474).  Three differences,
+all in how, not what:
 
 - every random draw comes from the ``np.random.RandomState`` passed as
   ``t(results, rng)``, and the draws are the JAX transforms' calls in their
   order, so a transform given ``RandomState(s)`` draws what the JAX one
   draws after ``np.random.seed(s)``;
 - cv2's resize and its 8-bit BGR<->HSV run in the port's host library
-  (:mod:`lednet_tpu_torch.native`), which reproduces cv2's arithmetic.
+  (:mod:`lednet_tpu_torch.native`), which reproduces cv2's arithmetic;
+- ``GenerateEdge``'s ``cv2.dilate`` is :func:`dilate`, in numpy.
 """
 from __future__ import annotations
 
@@ -233,4 +235,52 @@ class PhotoMetricDistortion:
         if mode == 0:
             img = self._contrast(img, rng)
         results['img'] = img
+        return results
+
+
+def dilate(mask: np.ndarray, width: int) -> np.ndarray:
+    """``cv2.dilate(mask, np.ones((width, width)))`` of a 2-D uint8 map, bit
+    for bit: the maximum over a width x width window whose anchor is cv2's
+    default ``width // 2``, so that an even window spans offsets
+    ``-(width // 2) .. width - 1 - width // 2`` (-2..+1 for 4) and is not
+    centred.  Cells outside the map never win (cv2's border value for
+    dilation is the type's minimum)."""
+    if width <= 1:
+        return mask.copy()
+    anchor = width // 2
+    h, w = mask.shape
+    padded = np.zeros((h + width - 1, w + width - 1), mask.dtype)
+    padded[anchor:anchor + h, anchor:anchor + w] = mask
+    rows = padded[:h].copy()
+    for i in range(1, width):
+        np.maximum(rows, padded[i:i + h], out=rows)
+    out = rows[:, :w].copy()
+    for j in range(1, width):
+        np.maximum(out, rows[:, j:j + w], out=out)
+    return out
+
+
+@TRANSFORMS.register_module()
+class GenerateEdge:
+    """The boundary label of PIDNet's train pipeline, ``gt_edge_map``
+    (uint8, added to ``seg_fields``): 1 where a pixel's label differs from a
+    4-neighbour's and is not ``ignore_index``, then dilated by an
+    ``edge_width`` square (:func:`dilate`)."""
+
+    def __init__(self, edge_width=3, ignore_index=255):
+        self.edge_width = edge_width
+        self.ignore_index = ignore_index
+
+    def __call__(self, results: Dict, rng=None) -> Dict:
+        seg = results['gt_seg_map']
+        diff = np.zeros(seg.shape, dtype=bool)
+        vertical = seg[1:, :] != seg[:-1, :]
+        horizontal = seg[:, 1:] != seg[:, :-1]
+        diff[1:, :] |= vertical
+        diff[:-1, :] |= vertical
+        diff[:, 1:] |= horizontal
+        diff[:, :-1] |= horizontal
+        edge = (diff & (seg != self.ignore_index)).astype(np.uint8)
+        results['gt_edge_map'] = dilate(edge, self.edge_width)
+        results.setdefault('seg_fields', []).append('gt_edge_map')
         return results

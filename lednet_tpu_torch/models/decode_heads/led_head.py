@@ -29,31 +29,33 @@ from __future__ import annotations
 from typing import Dict, Optional, Sequence
 
 import torch.nn as nn
-import torch.nn.functional as F
 
 from lednet_tpu_torch.models.decode_heads.base import (ClsSeg, build_losses,
                                                        resolve_out_channels,
                                                        sem_label)
-from lednet_tpu_torch.models.layers import ConvModule, Norm2d
+from lednet_tpu_torch.models.layers import ConvModule, Norm2d, build_activation
 from lednet_tpu_torch.models.losses.cross_entropy import accuracy
 from lednet_tpu_torch.ops.resize import resize_bilinear
 from lednet_tpu_torch.registry import MODELS
 
 
 class _BaseHead(nn.Module):
-    """BN -> ReLU -> 3x3 conv -> BN -> ReLU."""
+    """BN -> act -> 3x3 conv -> BN -> act (ReLU unless ``act_cfg`` says
+    otherwise)."""
 
     def __init__(self, in_channels: int, channels: int,
-                 norm_cfg: Optional[Dict] = None):
+                 norm_cfg: Optional[Dict] = None, act_cfg: Optional[Dict] = None):
         super().__init__()
         norm_cfg = norm_cfg or dict(type='BN')
+        act_cfg = act_cfg or dict(type='ReLU')
         self.conv = ConvModule(in_channels, channels, 3, padding=1,
-                               norm_cfg=norm_cfg, act_cfg=dict(type='ReLU'),
+                               norm_cfg=norm_cfg, act_cfg=act_cfg,
                                order=('norm', 'act', 'conv'))
         self.norm = Norm2d(norm_cfg, channels)
+        self.act = build_activation(act_cfg)
 
     def forward(self, x):
-        return F.relu(self.norm(self.conv(x)))
+        return self.act(self.norm(self.conv(x)))
 
 
 def _ceil_div(a: int, b: int) -> int:

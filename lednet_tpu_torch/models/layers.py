@@ -85,18 +85,19 @@ class ConvModule(nn.Module):
     """conv + norm + act with a configurable ``order``.  ``bias='auto'``
     gives the conv a bias only without a norm (mmcv's rule); a bool sets it.
     A norm before the conv (the pre-activation order) normalizes the input
-    width."""
+    width.  ``groups`` splits the conv's channels into groups (PAPPM's
+    per-scale convs, STDC's depthwise downsampling)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int = 1, padding: int = 0, dilation: int = 1,
-                 bias: Union[bool, str] = 'auto',
+                 groups: int = 1, bias: Union[bool, str] = 'auto',
                  norm_cfg: Optional[Dict] = None, act_cfg: Optional[Dict] = None,
                  order: Tuple[str, ...] = ('conv', 'norm', 'act')):
         super().__init__()
         self.order = tuple(order)
         use_bias = bias if isinstance(bias, bool) else norm_cfg is None
         self.conv = nn.Conv2d(in_channels, out_channels, kernel_size, stride,
-                              padding, dilation, bias=use_bias)
+                              padding, dilation, groups, bias=use_bias)
         norm_after_conv = self.order.index('norm') > self.order.index('conv')
         self.norm = (Norm2d(norm_cfg, out_channels if norm_after_conv
                             else in_channels) if norm_cfg is not None else None)

@@ -20,6 +20,7 @@ import functools
 import hashlib
 import os
 import subprocess
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -49,9 +50,20 @@ SIGNATURES = {   # name -> (argtypes, restype)
 }
 
 
+_BUILD_LOCK = threading.Lock()
+
+
 def build() -> Path:
     """Compile the library unless this source is built already; returns its
-    path.  Raises with the compiler's output on failure."""
+    path.  Raises with the compiler's output on failure.  The loader's
+    threads reach it together at their first sample: they build one at a
+    time (the first builds, the others find its result), and each process
+    writes its own temporary file before renaming it into place."""
+    with _BUILD_LOCK:
+        return _build()
+
+
+def _build() -> Path:
     h = hashlib.sha256(' '.join(CXX_FLAGS).encode())
     for src in SOURCES:
         h.update(src.read_bytes())

@@ -14,6 +14,7 @@ and cv2/PIL on the CPU.
   cv2 with at least 99.9% of values exact (measured: all exact; it is
   float arithmetic, with the truncating vector body of cv2 in blocks of 32
   pixels and a rounding tail), and equals its numpy reference exactly.
+  Threads that reach its build together build it once.
 - Transforms: the port's given ``np.random.RandomState(s)`` against the JAX
   package's after ``np.random.seed(s)``, over several seeds.  RandomCrop (its
   redraw loop too), RandomFlip and PackSegInputs exact; Resize and
@@ -156,6 +157,37 @@ def test_imwrite_round_trips_bgr_and_rejects_corruption(tmp_path):
         imageio.decode_png(bytes(data))
     with pytest.raises(FileNotFoundError):
         imageio.imread(str(tmp_path / 'missing.png'))
+
+
+def test_native_build_is_safe_across_threads(tmp_path, monkeypatch):
+    """The loader's threads reach the host library's build together at
+    their first sample: one builds, the others find its result (a compiler
+    that takes a while makes the threads overlap)."""
+    import subprocess
+    import threading
+    import time
+
+    def slow_compiler(cmd, **kw):
+        with open(cmd[cmd.index('-o') + 1], 'wb') as f:
+            f.write(b'lib')
+        time.sleep(0.2)         # the compiler's output is written; it exits
+        return subprocess.CompletedProcess(cmd, 0, '', '')
+    monkeypatch.setattr(native, 'BUILD_ROOT', tmp_path)
+    monkeypatch.setattr(native.subprocess, 'run', slow_compiler)
+    results = []
+
+    def build():
+        try:
+            results.append(native.build())
+        except Exception as e:      # collected, then held below
+            results.append(e)
+    threads = [threading.Thread(target=build) for _ in range(3)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert len(set(results)) == 1 and isinstance(results[0], os.PathLike), results
+    assert [p.name for p in tmp_path.rglob('*') if p.is_file()] == [native.LIB_NAME]
 
 
 @pytest.mark.parametrize('bpp', [1, 3, 4])

@@ -4,14 +4,16 @@
     python3 tools/torch_port_profile.py [--size 1024] [--iters 20] [--config CFG]
 
 Builds the flagship LED-Net (``configs/LED_Net/lednet_80k_cityscapes-1024x1024.py``,
-or the model of ``--config``: DDRNet and BiSeNetV1 run kernel A alone and
-skip the kernel E readings below)
+or the model of ``--config``: DDRNet, BiSeNetV1, PIDNet and STDC run kernel
+A alone and skip the kernel E readings below)
 with seeded random weights through ``lednet_tpu_torch.apis.init_model``, and
 profiles bs=1 forwards (preprocess + ``predict``) with ``torch.profiler``, once
 through the CUDA kernels and once through the plain module forms.  Prints,
 per path: wall time per forward (host clock around synchronized forwards),
 device busy time per forward (the sum of the device ops' self time), the
 idle share 1 - busy/wall, the number of device ops per forward, the device
+time per forward by kind (``by_kind``: convolutions, BatchNorm, the rest;
+by the device kernels' names, :func:`kind_of`), the device
 time and launches per forward of each of the port's CUDA kernels by op
 (kernel D's reduce and fused launches; kernel E, which no model calls,
 reads 0), the top device kernels by time and the top aten ops by the device
@@ -30,6 +32,13 @@ shape, by the device function names in ``ops.kernels.DEVICE_FUNCTIONS``:
 no model calls E, so no forward shows it.  ``--ops FILE`` also writes
 every device op (kernel, memcpy, memset) of each path with its calls per
 forward to FILE, to diff two trees' forwards.
+
+    python3 tools/torch_port_profile.py --config CFG --train
+
+instead profiles the config's train step (``make_train_step``, TF32 off)
+at its train batch and crop (``chip_smoke.train_batch``; with edge maps
+where the pipeline has ``GenerateEdge``), ``--iters`` steps after two, with
+the same readings per step.
 
     python3 tools/torch_port_profile.py --pyramid [--val]
 
@@ -80,6 +89,20 @@ def _device_us(evt):
     return _time_us(evt, ('device_time_total', 'cuda_time_total'))
 
 
+def kind_of(kernel: str) -> str:
+    """'conv', 'batch_norm' or 'rest' by a device kernel's name: cuDNN's and
+    PyTorch's own convolution kernels (implicit GEMMs, direct and grouped
+    convolutions, forward and backward), BatchNorm's (cuDNN's ``bn_fw`` /
+    ``bn_bw``, PyTorch's ``batch_norm``); layout transposes, resizes, pools, elementwise ops and
+    the port's kernels are the rest."""
+    name = kernel.lower()
+    if any(k in name for k in ('bn_fw', 'bn_bw', 'batch_norm', 'batchnorm')):
+        return 'batch_norm'
+    if any(k in name for k in ('conv', 'xmma', 'gemm', 'winograd', 'cutlass')):
+        return 'conv'
+    return 'rest'
+
+
 def eager_forward(model, x, impl):
     def forward():
         y, _, _ = model.data_preprocessor(x, impl=impl)
@@ -87,13 +110,38 @@ def eager_forward(model, x, impl):
     return forward
 
 
+def train_step(model):
+    """One call of the config's train step per call (see ``--train``)."""
+    import numpy as np
+    import torch
+    import chip_smoke
+    from lednet_tpu_torch.engine import (build_optimizer, create_train_state,
+                                         make_train_step)
+    cfg = model.cfg
+    opt, sched = build_optimizer(model, cfg.optim_wrapper, cfg.param_scheduler)
+    step = make_train_step(model, opt, model.data_preprocessor)
+    state = create_train_state(model, opt, sched)
+    imgs, lbl = chip_smoke.train_batch(
+        np.random.default_rng(0), cfg.train_dataloader.batch_size,
+        tuple(cfg.model.data_preprocessor.size), chip_smoke.edge_width(cfg))
+    imgs, lbl = imgs.cuda(), chip_smoke.to_device(lbl, 'cuda')
+
+    def run():
+        nonlocal state
+        state, _ = step(state, imgs, lbl)
+    return run
+
+
 def profile_path(forward, impl, iters):
+    import contextlib
+
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from lednet_tpu_torch.ops.kernels import DEVICE_FUNCTIONS
 
-    with torch.inference_mode():
+    with (contextlib.nullcontext() if impl == 'train' else
+          torch.inference_mode()):
         for _ in range(5):
             forward()
         torch.cuda.synchronize()
@@ -131,9 +179,13 @@ def profile_path(forward, impl, iters):
         return [dict(name=e.key[:90], ms_per_forward=key(e) / 1e3 / iters,
                      calls_per_forward=e.count / iters)
                 for e in sorted(evts, key=key, reverse=True)[:15]]
+    by_kind = {'conv': 0.0, 'batch_norm': 0.0, 'rest': 0.0}
+    for e in device:
+        by_kind[kind_of(e.key)] += _self_device_us(e) / 1e3 / iters
     return dict(impl=impl, wall_ms=wall_ms, device_busy_ms=busy_ms,
                 idle_share=max(0.0, 1.0 - busy_ms / wall_ms),
-                device_ops_per_forward=n_ops, port_kernels=port,
+                device_ops_per_forward=n_ops, by_kind=by_kind,
+                port_kernels=port,
                 top_kernels=rows(device, _self_device_us),
                 top_aten_ops=rows(aten, _device_us),
                 device_ops={e.key: e.count / iters for e in device})
@@ -347,6 +399,8 @@ def main() -> int:
     ap.add_argument('--iters', type=int, default=20)
     ap.add_argument('--graph', action='store_true',
                     help='also profile the replayed CUDA graph of the eval step')
+    ap.add_argument('--train', action='store_true',
+                    help="profile the config's train step instead")
     ap.add_argument('--ops', metavar='FILE',
                     help='write every device op of each path, with its calls '
                          'per forward, to FILE as JSON')
@@ -402,6 +456,8 @@ def main() -> int:
         return 0
     paths = [('cuda', eager_forward(model, x, 'cuda')),
              ('plain', eager_forward(model, x, 'plain'))]
+    if args.train:
+        paths = [('train', train_step(model))]
     if args.graph:
         from lednet_tpu_torch.engine import make_eval_step
         step = make_eval_step(model, model.data_preprocessor)
@@ -413,7 +469,9 @@ def main() -> int:
         report['paths'].append(r)
         print(f"[{impl}] wall {r['wall_ms']:.3f} ms/forward, device busy "
               f"{r['device_busy_ms']:.3f} ms, idle share {r['idle_share']:.3f}, "
-              f"{r['device_ops_per_forward']:.0f} device ops/forward", flush=True)
+              f"{r['device_ops_per_forward']:.0f} device ops/forward; by kind "
+              + ', '.join(f'{k} {ms:.3f} ms' for k, ms in r['by_kind'].items()),
+              flush=True)
         print('  port_kernels:', flush=True)
         for op, k in r['port_kernels'].items():
             parts = ', '.join(f'{fn} {ms:.4f}' for fn, ms in k['by_kernel'].items())
@@ -424,7 +482,7 @@ def main() -> int:
             for t in r[title]:
                 print(f"    {t['ms_per_forward']:8.4f} ms  x{t['calls_per_forward']:5.1f}  "
                       f"{t['name']}", flush=True)
-    if args.config == CONFIG:
+    if args.config == CONFIG and not args.train:
         with torch.inference_mode():
             report['sesp_pyramid'] = pyramid_device_time(model, x, args.iters,
                                                          args.val)

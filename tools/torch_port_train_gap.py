@@ -30,10 +30,12 @@ backward makes it), with cuDNN and with PyTorch's own convs, as a multiple
 of float32's unit roundoff times the largest sum of |terms|.
 
 ``--grad-trace CONFIG`` instead runs one step of CONFIG (2 seeded images
-of size x size, the first seed, dropout 0 in every head) in float64 on the
-CPU, then in float32 on the CPU and on the card (cuDNN off) with their discrete
-decisions (OHEM, ReLU, max pool) pinned to the float64 step's, as
-``chip_smoke.decisions`` pins them, and
+of size x size, the first seed, dropout 0 in every head; with their edge
+maps where the config's pipeline has ``GenerateEdge``, as PIDNet's) in
+float64 on the CPU, then in float32 on the CPU and on the card (cuDNN off)
+with their discrete decisions (OHEM, ReLU, max pool, PIDHead's boundary
+gate) pinned to the float64 step's, as ``chip_smoke.decisions`` pins them,
+and
 prints, in the order the float64 backward reaches them, each leaf module's
 output and input gradient and each parameter's gradient as the float32
 runs' largest error relative to the float64 one's largest value; the whole
@@ -111,13 +113,11 @@ def grad_trace(config, size, seed):
     from lednet_tpu_torch.engine import (build_optimizer, create_train_state,
                                          make_train_step)
     cfg = Config.fromfile(os.path.join(REPO, config))
-    extra = {'model.data_preprocessor.size': (size, size)}
-    if cfg.model.get('auxiliary_head'):
-        extra.update({'model.decode_head.dropout_ratio': 0.0,
-                      'model.auxiliary_head': [dict(h, dropout_ratio=0.0)
-                                               for h in cfg.model.auxiliary_head]})
+    extra, _ = smoke.without_dropout(cfg)
+    extra['model.data_preprocessor.size'] = (size, size)
     cfg.merge_from_dict(extra)
-    imgs, lbl = smoke.train_batch(np.random.default_rng(seed), 2, size)
+    imgs, lbl = smoke.train_batch(np.random.default_rng(seed), 2, size,
+                                  smoke.edge_width(cfg))
 
     def traced(device, dtype, kept, flips, pin):
         model = init_model(cfg, device=device,
@@ -149,7 +149,7 @@ def grad_trace(config, size, seed):
         with torch.backends.cudnn.flags(enabled=False), \
                 smoke.decisions(kept, flips, pin):
             step(create_train_state(model, opt, sched), imgs.to(device),
-                 lbl.to(device))
+                 smoke.to_device(lbl, device))
         return grads, order
 
     kept = []

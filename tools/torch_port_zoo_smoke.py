@@ -1,17 +1,24 @@
 #!/usr/bin/env python3
-"""The zoo phase of ``chip_smoke.py`` alone, on one NVIDIA GPU.
+"""The zoo phases of ``chip_smoke.py`` alone, on one NVIDIA GPU.
 
-    python3 tools/torch_port_zoo_smoke.py
+    python3 tools/torch_port_zoo_smoke.py [--phase 10 | 11 | 10 11]
 
-Prints the card's name and power limit, builds the kernels and runs
-``chip_smoke.zoo_models`` and ``chip_smoke.zoo_entry_points``: DDRNet-23-slim
-and BiSeNetV1 R-18 at their configs' widths through ``inference_model``
-(kernel A at float32 output against its plain version, the kernel path
-against the module forms, the eval graph against the eager path, DDRNet-23
-once), their train steps (timed, and held to the CPU's), then DDRNet-23-slim
-through the train and test CLIs.  Exits non-zero if the phase fails or there
-is no GPU.
+Prints the card's name and power limit, builds the kernels, fabricates the
+zoo's Cityscapes tree (``chip_smoke.zoo_tree``) and runs
+``chip_smoke.zoo_models`` and ``chip_smoke.zoo_entry_points`` for each
+phase asked for (default 10):
+
+- 10: DDRNet-23-slim and BiSeNetV1 R-18 at their configs' widths through
+  ``inference_model`` (kernel A at float32 output against its plain
+  version, the kernel path against the module forms, the eval graph
+  against the eager path), DDRNet-23 once, their train steps (timed, and
+  held to the CPU's), then DDRNet-23-slim through the train and test CLIs;
+- 11: the same of PIDNet-S and STDC1 (PIDNet-M, PIDNet-L and STDC2 once;
+  PIDNet-S trains on edge maps), then PIDNet-S through the CLIs.
+
+Exits non-zero if a phase fails or there is no GPU.
 """
+import argparse
 import os
 import subprocess
 import sys
@@ -21,6 +28,10 @@ sys.path.insert(0, REPO)
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__,
+                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument('--phase', nargs='+', choices=('10', '11'), default=['10'])
+    args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         print('torch_port_zoo_smoke: CUDA is not available', file=sys.stderr)
@@ -36,14 +47,22 @@ def main() -> int:
     chip_smoke.say(f'{card}; torch {torch.__version__}, CUDA {torch.version.cuda}')
     _build.build()
     _build.library()
+    phases = {'10': ('10 zoo', chip_smoke.ZOO, chip_smoke.ZOO_WIDE),
+              '11': ('11 pidnet stdc', chip_smoke.PID_STDC,
+                     chip_smoke.PID_STDC_WIDE)}
     try:
-        with chip_smoke.phase('10 zoo'):
-            launches, device, a_err = chip_smoke.zoo_models(card)
-            chip_smoke.zoo_entry_points(card)
+        with chip_smoke.zoo_tree() as tree:
+            for key in args.phase:
+                name, models, wide = phases[key]
+                with chip_smoke.phase(name):
+                    launches, device, a_err = chip_smoke.zoo_models(
+                        card, models, wide)
+                    chip_smoke.zoo_entry_points(card, tree, *models[0])
+                chip_smoke.say(f'phase {key}: launches {launches}; device '
+                               f'{device}; kernel A max abs err at float32 '
+                               f'output {a_err}')
     except chip_smoke.PhaseError:
         return 1
-    chip_smoke.say(f'launches {launches}; device {device}; kernel A max abs '
-                   f'err at float32 output {a_err}')
     return 0
 
 
