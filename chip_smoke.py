@@ -163,7 +163,21 @@ printing one flushed line with its seconds:
    (PIDNet-S 6 x 1024x1024 with edge maps from ``GenerateEdge``, STDC1 12
    x 512x1024); the card's step against the CPU's at 2 x 256x256 with
    dropout 0 (float64; float32 with PIDHead's boundary gate pinned
-   too); PIDNet-S through the train and test CLIs on phase 10's tree.
+   too); PIDNet-S through the train and test CLIs on phase 10's tree;
+12. BiSeNetV2 and HRNet: ``init_model`` on the card of their 4 + 10
+   configs (``BISE_HRNET_CONFIGS``); phase 10's checks of BiSeNetV2 (its
+   ``-ohem-`` config: an ``OHEMPixelSampler`` on all five heads) and
+   HRNet-W18 (``configs/bisenetv2/``, ``configs/hrnet/``, unchanged) at
+   full width and bs 1 at 1024x1024; HRNet-W18-Small and HRNet-W48 one
+   replayed forward each against eager; train steps at the configs'
+   batches (BiSeNetV2 4 x 1024x1024, HRNet-W18 2 x 512x1024), the card's
+   step against the CPU's at 2 x 256x256 (float64; float32 with each
+   sampler's keep mask pinned too); the ``-amp-`` config's bfloat16 step
+   (``bf16_step``: bs 4 at 1024x1024, dropout 0, finite losses, float32
+   master weights and gradients, its first loss within 2^-8 of the
+   float32 step's, relatively, both timed, peak memory); the ``-amp-`` config
+   (the Runner's ``bf16`` path) and HRNet-W18 through the train and test
+   CLIs on phase 10's tree.
 
 It prints the card line and a ``{"kernels": [...]}`` line (``launches``:
 the wrappers' count in phase 4; ``device_launches``: the CUDA launches the
@@ -175,7 +189,8 @@ its plain version over phase 9's shapes; ``zoo_launches``,
 ``zoo_device_launches``: the same of phase 10's ``inference_model`` runs,
 ``zoo_max_abs_err``: A's at float32 output; ``pid_stdc_launches``,
 ``pid_stdc_device_launches``, ``pid_stdc_max_abs_err``: the same of phase
-11; E's row also has
+11; ``bise_hrnet_launches``, ``bise_hrnet_device_launches``,
+``bise_hrnet_max_abs_err``: the same of phase 12; E's row also has
 ``device_ms`` and ``cudnn_composition_ms`` per call at the flagship set,
 and ``val_ms``, ``val_plain_ms``, ``val_bound_ms``, ``val_device_ms`` and
 ``val_cudnn_composition_ms`` at the val set, all measured in this run),
@@ -232,6 +247,19 @@ PID_STDC = (('PIDNet-S', 'configs/pidnet/pidnet-s_cityscapes-1024x1024.py'),
 PID_STDC_WIDE = (('PIDNet-M', 'configs/pidnet/pidnet-m_cityscapes-1024x1024.py'),
                  ('PIDNet-L', 'configs/pidnet/pidnet-l_cityscapes-1024x1024.py'),
                  ('STDC2', 'configs/stdc/stdc2_cityscapes-512x1024.py'))
+# phase 12: BiSeNetV2 (its -ohem- config: an OHEM pixel sampler on all five
+# heads) and HRNet-W18 in full; HRNet-W18-Small and W48 once; the -amp-
+# config's bfloat16 step
+BISE_HRNET = (('BiSeNetV2', 'configs/bisenetv2/'
+               'bisenetv2_fcn_4xb4-ohem-160k_cityscapes-1024x1024.py'),
+              ('HRNet-W18', 'configs/hrnet/fcn_hr18_4xb2-80k_cityscapes-512x1024.py'))
+BISE_HRNET_WIDE = (('HRNet-W18-Small',
+                    'configs/hrnet/fcn_hr18s_4xb2-80k_cityscapes-512x1024.py'),
+                   ('HRNet-W48', 'configs/hrnet/fcn_hr48_4xb2-80k_cityscapes-512x1024.py'))
+BISE_AMP = 'configs/bisenetv2/bisenetv2_fcn_4xb4-amp-160k_cityscapes-1024x1024.py'
+BISE_HRNET_CONFIGS = ('configs/bisenetv2/*.py',
+                      'configs/hrnet/fcn_hr*_cityscapes-512x1024.py')
+BF16_U = 2.0 ** -8     # bfloat16's unit roundoff: the amp loss's bound, relative
 CE_LOSSES = [dict(type='CrossEntropyLoss', loss_weight=1.0),
              dict(type='CrossEntropyLoss', loss_weight=0.4)]
 MIN_ARGMAX_AGREEMENT = 0.999
@@ -330,18 +358,51 @@ def cuda_ms(fn, reps, warmup=3):
     return start.elapsed_time(end) / reps
 
 
+class EmptyTrace(RuntimeError):
+    """A device trace that recorded no kernel at all, its own pads'
+    included: the profiler session failed, not the work it wrapped."""
+
+
 @contextlib.contextmanager
 def device_trace(counts):
     """Fill ``counts`` with the CUDA launches of each port kernel that ran
-    on the device inside (``kernels.device_launches`` of a CUPTI trace)."""
+    on the device inside (``kernels.device_launches`` of a CUPTI trace);
+    raises EmptyTrace if the trace holds no device kernel at all."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from lednet_tpu_torch.ops import kernels
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         pad_trace()
         yield
         torch.cuda.synchronize()
-    counts.update(kernels.device_launches(prof.key_averages()))
+    events = prof.key_averages()
+    if not any(e.device_type == DeviceType.CUDA and e.count for e in events):
+        raise EmptyTrace('the device trace recorded no kernel at all')
+    counts.update(kernels.device_launches(events))
+
+
+def traced_forward(model, x8):
+    """One eager kernel-path forward (preprocess + predict) of the uint8
+    images ``x8`` under :func:`device_trace`: (the kernel calls it made, as
+    :func:`recording` keeps them; the CUDA launches the trace saw).  A
+    forward always launches kernels of its own besides the port's, so an
+    EmptyTrace is the profiler's failure: the forward is traced once more
+    (seen once in a dozen runs of this script: one session of phase 9 held
+    nothing)."""
+    import torch
+    for attempt in (0, 1):
+        calls, counts = [], {}
+        try:
+            with recording(calls), torch.inference_mode(), device_trace(counts):
+                x, _, _ = model.data_preprocessor(x8, impl='cuda')
+                model.predict(x, 'cuda')
+            return calls, counts
+        except EmptyTrace:
+            if attempt:
+                raise
+            say('  the device trace recorded no kernel at all; tracing the '
+                'forward again')
 
 
 def pad_trace():
@@ -351,11 +412,11 @@ def pad_trace():
     tracer time before the traced work."""
     import torch
     pad = torch.zeros(1, device='cuda')
-    for _ in range(2):
+    for _ in range(3):
         for _ in range(64):
             pad.add_(1)
         torch.cuda.synchronize()
-        time.sleep(0.05)
+        time.sleep(0.1)
 
 
 def synced_ms(fn, reps, warmup=3):
@@ -695,18 +756,20 @@ def hold_train(name, card, cpu, bounds):
 @contextlib.contextmanager
 def decisions(kept, flips=None, pin=False):
     """A train step's discrete decisions: the pixels each OHEM loss keeps,
-    the sign of each ReLU's input, each max pool's choice, and PIDHead's
+    the sign of each ReLU's input, each max pool's choice, PIDHead's
     boundary gate (the pixels whose ``sigmoid(d) > 0.8`` keep their label in
-    its fourth loss).  Inside, with ``flips`` None, each is appended to
-    ``kept`` in call order; else ``flips[kind]`` counts where the step
-    decides otherwise than the next of ``kept``, and with ``pin`` the step
-    follows ``kept``."""
+    its fourth loss) and the pixels each ``OHEMPixelSampler`` keeps.
+    Inside, with ``flips`` None, each is appended to ``kept`` in call
+    order; else ``flips[kind]`` counts where the step decides otherwise
+    than the next of ``kept``, and with ``pin`` the step follows
+    ``kept``."""
     import torch
     import torch.nn.functional as F
     from lednet_tpu_torch.models.decode_heads.pid_head import PIDHead
     from lednet_tpu_torch.models.losses.cross_entropy import OhemCrossEntropy
+    from lednet_tpu_torch.structures import OHEMPixelSampler
     threshold, relu, max_pool = OhemCrossEntropy.threshold, F.relu, F.max_pool2d
-    boundary_gate = PIDHead.boundary_gate
+    boundary_gate, keep_mask = PIDHead.boundary_gate, OHEMPixelSampler.keep_mask
     recorded = iter(list(kept))
 
     def decide(kind, own):
@@ -737,14 +800,18 @@ def decisions(kept, flips=None, pin=False):
 
     def gate(self, d_logit):
         return decide('gate', boundary_gate(self, d_logit))
+
+    def sampled(self, seg_logits, seg_label):
+        return decide('sampler', keep_mask(self, seg_logits, seg_label))
     OhemCrossEntropy.threshold, F.relu, F.max_pool2d = ohem, rectify, pool
-    PIDHead.boundary_gate = gate
+    PIDHead.boundary_gate, OHEMPixelSampler.keep_mask = gate, sampled
     try:
         yield
     finally:
         OhemCrossEntropy.threshold, F.relu, F.max_pool2d = (threshold, relu,
                                                             max_pool)
-        PIDHead.boundary_gate = boundary_gate
+        PIDHead.boundary_gate, OHEMPixelSampler.keep_mask = (boundary_gate,
+                                                             keep_mask)
 
 
 def float32_bounds(cpu_loss, cpu_weights, cpu_stats):
@@ -881,13 +948,10 @@ def entry_points(model, card, expected):
         gen = torch.Generator().manual_seed(SEED + 8)
         x8 = torch.randint(0, 256, VAL_SHAPE + (3,), generator=gen,
                            dtype=torch.uint8).cuda()
-        calls, per_forward = [], {}
         with torch.inference_mode():
             x, _, _ = model.data_preprocessor(x8, impl='cuda')
             model.predict(x, 'cuda')          # warm-up at the new shape
-            with recording(calls), device_trace(per_forward):
-                x, _, _ = model.data_preprocessor(x8, impl='cuda')
-                model.predict(x, 'cuda')
+        calls, per_forward = traced_forward(model, x8)
         say(f'  CUDA launches of one forward at {VAL_SHAPE} (device trace): '
             f'{per_forward}')
         if per_forward != expected:
@@ -1165,13 +1229,11 @@ def branch_path(card, expected):
         for label, shape in branch_eval_shapes(cfg).items():
             x8 = torch.randint(0, 256, shape + (3,), generator=gen,
                                dtype=torch.uint8).cuda()
-            calls, per_forward, shape_errs = [], {}, {}
+            shape_errs = {}
             with torch.inference_mode():
                 x, _, _ = kmodel.data_preprocessor(x8, impl='cuda')
                 kmodel.predict(x, 'cuda')          # warm-up at the new shape
-                with recording(calls), device_trace(per_forward):
-                    x, _, _ = kmodel.data_preprocessor(x8, impl='cuda')
-                    kmodel.predict(x, 'cuda')
+            calls, per_forward = traced_forward(kmodel, x8)
             if per_forward != expected:
                 raise AssertionError(f'{label} {shape}: the device ran '
                                      f'{per_forward}, not {expected}')
@@ -1277,6 +1339,21 @@ def branch_path(card, expected):
             f'launches {device}; graphs captured: test {counted["test"][2]}, '
             f'--tta {counted["test --tta"][2]}; metrics {counted["test"][0]}, '
             f'--tta {counted["test --tta"][0]}')
+        if all(c for n, c in launches.items() if n not in OFF_PATH) and \
+                device != {n: c * forwards for n, c in expected.items()}:
+            # a profiler session can drop the device records of some
+            # forwards (whole forwards of this one, twice in a dozen runs):
+            # trace both passes again, which now replay the captured graphs
+            say(f'  the device trace saw {device}, not {forwards} forwards; '
+                'tracing both passes again')
+            device = {}
+            with device_trace(device):
+                again = {which: test_run(which) for which, _ in pipelines}
+            if any(again[w][0] != counted[w][0] or again[w][2] for w in again):
+                raise AssertionError(f'test + --tta traced again gave {again}, '
+                                     f'not {counted} without captures')
+            forwards = calls
+            say(f'  test + test --tta (traced again): CUDA launches {device}')
         if not all(c for n, c in launches.items() if n not in OFF_PATH) or \
                 device != {n: c * forwards for n, c in expected.items()}:
             raise AssertionError(f'test + --tta launched {launches} (device '
@@ -1345,9 +1422,10 @@ def without_dropout(cfg):
 
 
 def zoo_models(card, models=ZOO, wide=ZOO_WIDE):
-    """Phases 10 and 11, inference and training of ``models`` at their
+    """Phases 10-12, inference and training of ``models`` at their
     configs' widths (seeded weights, non-trivial BatchNorm stats; phase 10:
-    DDRNet-23-slim and BiSeNetV1 R-18, phase 11: PIDNet-S and STDC1), and
+    DDRNet-23-slim and BiSeNetV1 R-18, phase 11: PIDNet-S and STDC1, phase
+    12: BiSeNetV2 and HRNet-W18), and
     one forward of each of ``wide``; returns the kernels' wrapper launches
     and device launches of their main path and kernel A's largest error at
     float32 output."""
@@ -1539,8 +1617,8 @@ def zoo_models(card, models=ZOO, wide=ZOO_WIDE):
                                                    SEED + 11, dtype)
         cpu64 = runs['cpu', torch.float64]
         say(f'  {label} one step, 2x256x256: of {len(kept)} calls that decide '
-            '(OHEM, ReLU, max pool, boundary gate), elements decided '
-            'otherwise than in the '
+            '(OHEM, ReLU, max pool, boundary gate, pixel sampler), elements '
+            'decided otherwise than in the '
             'CPU float64 step: ' + '; '.join(
                 f'{which} {flips[key]}' for which, key in (
                     ('the CPU float32', ('cpu', torch.float32, True)),
@@ -1571,9 +1649,108 @@ def zoo_models(card, models=ZOO, wide=ZOO_WIDE):
     return launches, device, max(a_errs)
 
 
+def bf16_step(card, config=BISE_AMP):
+    """Phase 12: the ``bf16 = True`` config's train step (``amp=True``, the
+    Runner's reading of it) at the config's batch and crop on the card,
+    beside its float32 step from the same seeded weights and batch, both
+    with dropout 0 (two steps draw different dropout masks): the first
+    step's loss of each, then TRAIN_STEPS timed steps after it, peak
+    memory.  Holds every loss finite, the master weights and their
+    gradients float32, and the bfloat16 loss within BF16_U of the float32
+    one, relatively (the bound of ``tests/test_torch_port_bisenetv2_hrnet.py``
+    for the loss)."""
+    import torch
+    from lednet_tpu_torch.apis import init_model
+    from lednet_tpu_torch.config import Config
+    from lednet_tpu_torch.engine import (build_optimizer, create_train_state,
+                                         make_train_step)
+    cfg = Config.fromfile(config)
+    if not cfg.get('bf16'):
+        raise AssertionError(f'{config} does not set bf16')
+    cfg.merge_from_dict(without_dropout(cfg)[0])
+    batch = cfg.train_dataloader.batch_size
+    crop = tuple(cfg.model.data_preprocessor.size)
+    imgs, lbl = (t.cuda() for t in train_batch(np.random.default_rng(SEED + 12),
+                                               batch, crop))
+    first = {}
+    for amp in (False, True):
+        model = init_model(cfg, device='cuda',
+                           generator=torch.Generator().manual_seed(SEED + 12))
+        opt, sched = build_optimizer(model, cfg.optim_wrapper,
+                                     cfg.param_scheduler)
+        step = make_train_step(model, opt, model.data_preprocessor, amp=amp)
+        state = create_train_state(model, opt, sched)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        times = []
+        for i in range(1 + TRAIN_STEPS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            state, logs = step(state, imgs, lbl)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+            vals = {k: v.item() for k, v in logs.items()}
+            if not all(np.isfinite(v) for v in vals.values()):
+                raise AssertionError(f'bf16 {amp} step {state.step}: {vals}')
+            if i == 0:
+                first[amp] = vals['loss']
+        dtypes = {p.dtype for p in model.parameters()} | \
+            {p.grad.dtype for p in model.parameters()}
+        if dtypes != {torch.float32}:
+            raise AssertionError(f'master weights or gradients in {dtypes}')
+        ms = sum(times[1:]) / TRAIN_STEPS
+        say(f'  BiSeNetV2 {"bfloat16 (amp)" if amp else "float32"} train step, '
+            f'bs {batch} at {crop[0]}x{crop[1]} (TF32 off): {ms:.3f} ms/step '
+            f'({batch * 1000 / ms:.2f} img/s) over {TRAIN_STEPS} steps after '
+            f'the first, dropout 0; peak memory allocated '
+            f'{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, of it '
+            f'{held / 2**30:.3f} GiB before the first step; first loss '
+            f'{first[amp]:.6f}; master weights and gradients float32; on {card}')
+        del model, opt, step, state, logs
+        torch.cuda.empty_cache()
+    diff = abs(first[True] - first[False])
+    say(f'  BiSeNetV2 bfloat16 vs float32 first loss: |diff| {diff:.3e} '
+        f'(bound 2^-8 x |loss| = {BF16_U * abs(first[False]):.3e})')
+    if not (0 < diff <= BF16_U * abs(first[False])):
+        raise AssertionError('the bfloat16 loss is not within bfloat16 '
+                             'rounding of the float32 loss, or equals it')
+
+
+def bise_hrnet(card, tmp):
+    """Phase 12 on the tree of :func:`zoo_tree` in ``tmp``: ``init_model``
+    on the card of every BiSeNetV2 config and every HRNet config on
+    Cityscapes (BISE_HRNET_CONFIGS), BiSeNetV2 and HRNet through
+    :func:`zoo_models`, the bfloat16 step, then the ``-amp-`` config and
+    HRNet-W18 through the CLIs; returns what ``zoo_models`` does."""
+    import glob
+    from lednet_tpu_torch.apis import init_model
+    configs = sorted(c for pattern in BISE_HRNET_CONFIGS
+                     for c in glob.glob(pattern))
+    t0 = time.perf_counter()
+    sizes = {}
+    for config in configs:
+        model = init_model(config, device='cuda')
+        sizes[os.path.basename(config)] = sum(p.numel()
+                                              for p in model.parameters())
+        del model
+    say(f'  init_model on the card, {len(configs)} configs in '
+        f'{time.perf_counter() - t0:.2f} s; parameters: ' +
+        ', '.join(f'{k} {v}' for k, v in sizes.items()))
+    if len(configs) != 14:
+        raise AssertionError(f'{len(configs)} configs, not 4 + 10')
+    out = zoo_models(card, BISE_HRNET, BISE_HRNET_WIDE)
+    bf16_step(card)
+    zoo_entry_points(card, tmp, 'BiSeNetV2 (bf16)', BISE_AMP)
+    zoo_entry_points(card, tmp, *BISE_HRNET[1])
+    return out
+
+
 @contextlib.contextmanager
 def zoo_tree():
-    """The fabricated Cityscapes tree of phases 10 and 11
+    """The fabricated Cityscapes tree of phases 10-12
     (``ZOO_TREE_TRAIN`` + ``ZOO_TREE_VAL`` 2048x1024 frames) in a temporary
     directory, removed after: yields that directory, the tree being its
     ``cityscapes``."""
@@ -1595,7 +1772,7 @@ def zoo_tree():
 
 
 def zoo_entry_points(card, tmp, label, config):
-    """Phases 10 and 11, entry points: ``config`` through the train CLI
+    """Phases 10-12, entry points: ``config`` through the train CLI
     (``ZOO_ITERS`` steps, one val at the end) on the tree of
     :func:`zoo_tree` in ``tmp``, and the test CLI on the last checkpoint,
     which must equal that val."""
@@ -1694,10 +1871,7 @@ def main() -> int:
         imgs = [rng.integers(0, 256, (SIZE, SIZE, 3), dtype=np.uint8)
                 for _ in range(N_IMAGES)]
         x_dev = torch.from_numpy(imgs[0][None]).cuda()
-        calls, per_forward = [], {}
-        with recording(calls), torch.inference_mode(), device_trace(per_forward):
-            x, _, _ = model.data_preprocessor(x_dev, impl='cuda')
-            model.predict(x, 'cuda')
+        calls, per_forward = traced_forward(model, x_dev)
         say(f'  CUDA launches of one forward (device trace): {per_forward}')
         errs = {name: [] for name in KERNEL_INFO}
         for name, op, args, kw in calls:
@@ -2038,6 +2212,8 @@ def main() -> int:
             pid_launches, pid_device, pid_a_err = zoo_models(
                 card, PID_STDC, PID_STDC_WIDE)
             zoo_entry_points(card, tree, *PID_STDC[0])
+        with phase('12 bisenetv2 hrnet'):
+            bh_launches, bh_device, bh_a_err = bise_hrnet(card, tree)
     for row in rows:
         row['entry_point_launches'] = entry_launches[row['name']]
         row['entry_point_device_launches'] = entry_device[row['name']]
@@ -2052,6 +2228,10 @@ def main() -> int:
         row['pid_stdc_device_launches'] = pid_device[row['name']]
         row['pid_stdc_max_abs_err'] = (pid_a_err if row['name'] ==
                                        'normalize_image' else None)
+        row['bise_hrnet_launches'] = bh_launches[row['name']]
+        row['bise_hrnet_device_launches'] = bh_device[row['name']]
+        row['bise_hrnet_max_abs_err'] = (bh_a_err if row['name'] ==
+                                         'normalize_image' else None)
 
     say(card)
     say(json.dumps({'kernels': rows}))

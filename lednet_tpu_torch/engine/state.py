@@ -56,6 +56,18 @@ def parse_losses(losses: Dict[str, torch.Tensor]) -> torch.Tensor:
     return sum(v for k, v in losses.items() if 'loss' in k.split('.')[-1])
 
 
+class _LossOf(nn.Module):
+    """``model.loss`` as a module's forward, for ``torch.func.functional_call``
+    (which calls a module with its parameters swapped for others)."""
+
+    def __init__(self, model: nn.Module):
+        super().__init__()
+        self.model = model
+
+    def forward(self, inputs, labels):
+        return self.model.loss(inputs, labels)
+
+
 def make_train_step(model: nn.Module, optimizer: OptimWrapper,
                     preprocessor=None, amp: bool = False) -> Callable:
     """The train step ``(state, inputs, labels) -> (state, logs)``.
@@ -67,21 +79,34 @@ def make_train_step(model: nn.Module, optimizer: OptimWrapper,
     the raw gradients ``grad_norm``.  The update uses the lr of
     ``state.lr_schedule(state.step)``.
 
-    ``amp=True`` runs the forward under ``torch.autocast`` in bfloat16 on
-    the model's device type, with float32 master weights and no loss
-    scaling (bfloat16 has float32's exponent range), as the JAX step does.
+    ``amp=True`` (a config's ``bf16 = True``) computes the loss in
+    bfloat16 as the JAX step does (``lednet_tpu/engine/state.py:78-82``):
+    every floating parameter and the input are cast to bfloat16 inside the
+    loss by an autograd-tracked cast, so that the whole forward runs in
+    bfloat16 (BatchNorm normalizes in float32 and casts back, its running
+    stats stay float32) and the gradients land on the float32 master
+    weights, which the optimizer updates in float32.  No loss scaling:
+    bfloat16 has float32's exponent range.  ``torch.autocast`` is not
+    used: it picks each op's dtype by its own lists, per device, and ran
+    BatchNorm's backward in bfloat16, which took the ``-amp-`` BiSeNetV2
+    step far from JAX's (``tests/test_torch_port_bisenetv2_hrnet.py``).
     The caller's TF32 flags apply.
     """
-    device_type = next(model.parameters()).device.type
+    loss_of = _LossOf(model)
 
     def step_fn(state: TrainState, inputs, labels) -> Tuple[TrainState, Dict]:
         if not model.training:
             model.train()
         if preprocessor is not None:
             inputs, labels, _ = preprocessor(inputs, labels, training=True)
-        with torch.autocast(device_type, dtype=torch.bfloat16, enabled=amp):
+        if amp:
+            low = {f'model.{n}': p.to(torch.bfloat16)
+                   for n, p in model.named_parameters()}
+            losses = torch.func.functional_call(
+                loss_of, low, (inputs.to(torch.bfloat16), labels))
+        else:
             losses = model.loss(inputs, labels)
-            total = parse_losses(losses)
+        total = parse_losses(losses)
         optimizer.zero_grad()
         total.backward()
         grad_norm = optimizer.step(state.lr_schedule(state.step))

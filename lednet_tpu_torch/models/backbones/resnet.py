@@ -2,11 +2,12 @@
 
 Counterpart of ``lednet_tpu/models/backbones/resnet.py`` (``_ResBasicBlock``
 :22, ``_ResBottleneck`` :62, ``ResNet`` :105): depths 18/34 (``BasicBlock``)
-and 50/101/152 (``Bottleneck`` of expansion 4 with the output ReLU and the
-stride on the 3x3 conv, the ``style='pytorch'`` placement), a 7x7/s2 stem
-or the three-conv deep stem (ResNetV1c), a 3x3/s2 max pool padded with
-``-inf``, per-stage ``strides`` and ``dilations`` (``contract_dilation``
-halves a stage's first dilation), and ``out_indices``.  Blocks are named
+and 50/101/152 (``models/layers.py``'s ``ResBottleneck``, expansion 4 with
+the output ReLU and the stride on the 3x3 conv, the ``style='pytorch'``
+placement), a 7x7/s2 stem or the three-conv deep stem (ResNetV1c), a
+3x3/s2 max pool padded with ``-inf``, per-stage ``strides`` and
+``dilations`` (``contract_dilation`` halves a stage's first dilation), and
+``out_indices``.  Blocks are named
 ``layer{stage}_{block}`` as in the flax tree.
 
 ``style``, ``frozen_stages``, ``norm_eval``, ``with_cp``, ``pretrained`` and
@@ -21,17 +22,9 @@ from typing import Dict, Optional, Sequence
 
 import torch.nn as nn
 
-from lednet_tpu_torch.models.layers import BasicBlock, Bottleneck, ConvModule
+from lednet_tpu_torch.models.layers import BasicBlock, ConvModule, ResBottleneck
 from lednet_tpu_torch.ops.pool import max_pool2d
 from lednet_tpu_torch.registry import MODELS
-
-
-class _ResBottleneck(Bottleneck):
-    """ResNet's bottleneck: expansion 4 and the output ReLU."""
-    expansion = 4
-
-    def __init__(self, *args, **kwargs):
-        super().__init__(*args, act_out=True, **kwargs)
 
 
 @MODELS.register_module()
@@ -39,9 +32,9 @@ class ResNet(nn.Module):
     arch_settings = {
         18: (BasicBlock, (2, 2, 2, 2)),
         34: (BasicBlock, (3, 4, 6, 3)),
-        50: (_ResBottleneck, (3, 4, 6, 3)),
-        101: (_ResBottleneck, (3, 4, 23, 3)),
-        152: (_ResBottleneck, (3, 8, 36, 3)),
+        50: (ResBottleneck, (3, 4, 6, 3)),
+        101: (ResBottleneck, (3, 4, 23, 3)),
+        152: (ResBottleneck, (3, 8, 36, 3)),
     }
 
     def __init__(self, depth: int = 50, in_channels: int = 3,

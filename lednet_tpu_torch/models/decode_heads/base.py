@@ -3,10 +3,11 @@ builder, the input and label selectors, and the single-tensor head's loss.
 
 Counterpart of ``lednet_tpu/models/decode_heads/base.py`` (``build_losses``
 :26, ``select_inputs`` :36, ``ClsSeg`` :52, ``resolve_out_channels`` :66,
-``sem_label`` :81, ``default_loss_by_feat`` :90).
+``sem_label`` :81, ``default_loss_by_feat`` :89, with its pixel sampler).
 """
 from __future__ import annotations
 
+import inspect
 from typing import Any, Dict, List, Optional
 
 import torch
@@ -78,15 +79,31 @@ class ClsSeg(nn.Module):
         return self.conv_seg(self.dropout(x))
 
 
+def takes_weight(loss_fn) -> bool:
+    """Whether ``loss_fn`` takes a per-pixel ``weight`` (a sampler's map).
+    The JAX package calls every loss with ``weight=`` and again without it
+    on a ``TypeError``; the port reads the signature instead, so that a
+    ``TypeError`` raised inside a loss is never taken for that."""
+    return 'weight' in inspect.signature(loss_fn).parameters
+
+
 def default_loss_by_feat(seg_logits, seg_label, losses, align_corners: bool,
-                         ignore_index: int) -> Dict[str, torch.Tensor]:
+                         ignore_index: int,
+                         sampler=None) -> Dict[str, torch.Tensor]:
     """The loss of a single-tensor head: the logits resized to the label,
-    every configured loss (same-named ones summed), ``acc_seg``."""
+    the per-pixel weights that ``sampler`` (an ``OHEMPixelSampler``) gives
+    them, if any, passed to every configured loss that takes ``weight``
+    (same-named losses summed), ``acc_seg``."""
     seg_label = sem_label(seg_label)
     seg_logits = resize_bilinear(seg_logits, seg_label.shape[-2:], align_corners)
+    seg_weight = None
+    if sampler is not None:
+        seg_weight = sampler.sample(seg_logits, seg_label)
     out: Dict[str, torch.Tensor] = {}
     for loss_fn in losses:
-        val = loss_fn(seg_logits, seg_label, ignore_index=ignore_index)
+        kw = dict(weight=seg_weight) if seg_weight is not None and \
+            takes_weight(loss_fn) else {}
+        val = loss_fn(seg_logits, seg_label, ignore_index=ignore_index, **kw)
         out[loss_fn.loss_name] = out[loss_fn.loss_name] + val \
             if loss_fn.loss_name in out else val
     out['acc_seg'] = accuracy(seg_logits, seg_label, ignore_index)

@@ -6,8 +6,9 @@ selected by ``in_index`` / ``input_transform`` (``select_inputs``),
 ``num_convs`` convs (``kernel_size``, ``dilation``) in -> channels, with
 ``concat_input`` a conv of [input, features] back to ``channels``, then
 dropout + the 1x1 classifier.  ``loss_by_feat`` resizes the logits to the
-label and runs the configured losses; ``predict_by_feat`` resizes them to
-``size``.  A ``sampler`` (``OHEMPixelSampler``) is later work in the port.
+label, weights its pixels by the ``sampler`` if one is configured
+(``OHEMPixelSampler``, built once) and runs the configured losses;
+``predict_by_feat`` resizes them to ``size``.
 """
 from __future__ import annotations
 
@@ -43,10 +44,6 @@ class FCNHead(nn.Module):
         """``in_channels`` is the selected input's width (the sum of the
         widths for ``'resize_concat'``)."""
         super().__init__()
-        if sampler is not None:
-            raise NotImplementedError('pixel samplers (OHEMPixelSampler) are '
-                                      'later work in the port (ROADMAP Queue '
-                                      '1 item 4)')
         if input_transform == 'multiple_select':
             raise ValueError("FCNHead convolves one map: input_transform="
                              "'multiple_select' gives it a list")
@@ -64,6 +61,8 @@ class FCNHead(nn.Module):
         self.align_corners = align_corners
         self.ignore_index = ignore_index
         self.losses = build_losses(loss_decode)
+        self.sampler = (MODELS.build(dict(sampler)) if sampler is not None
+                        else None)
         for i in range(num_convs):
             self.add_module(f'conv{i}', ConvModule(
                 in_ch if i == 0 else channels, channels, kernel_size,
@@ -91,7 +90,8 @@ class FCNHead(nn.Module):
 
     def loss_by_feat(self, seg_logits, seg_label) -> Dict:
         return default_loss_by_feat(seg_logits, seg_label, self.losses,
-                                    self.align_corners, self.ignore_index)
+                                    self.align_corners, self.ignore_index,
+                                    self.sampler)
 
     def predict_by_feat(self, seg_logits, size=None):
         if size is None:

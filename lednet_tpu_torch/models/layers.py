@@ -1,5 +1,5 @@
 """Core NN bricks: PReLU, BatchNorm, Norm2d, ConvModule, BasicBlock,
-Bottleneck.
+Bottleneck, ResBottleneck.
 
 Counterpart of ``lednet_tpu/models/layers.py``.  Modules here take and return
 NCHW tensors (torch's layout); submodule and parameter names follow the flax
@@ -48,20 +48,36 @@ class BatchNorm(nn.BatchNorm2d):
     DAPPM's last branch, BiSeNetV1's attention) torch refuses; the JAX
     package normalizes it to the bias and updates the running variance with
     the variance 0 (its Bessel factor is ``n / max(n - 1, 1)``), and so does
-    this module."""
+    this module.  A bfloat16 map is normalized in float32 and the result
+    cast back, as in the JAX package."""
 
     def forward(self, x):
-        if not (self.training and x.numel() == x.shape[1]):
+        one = self.training and x.numel() == x.shape[1]
+        low = x.dtype in (torch.bfloat16, torch.float16)
+        if not (one or low):
             return super().forward(x)
-        mean = x.mean((0, 2, 3))
-        var = (x - mean.view(1, -1, 1, 1)).square().mean((0, 2, 3))
+        # a bfloat16 map (the bf16 train step, whose weights are bfloat16
+        # too) is normalized in float32 and cast back, as the JAX package's
+        # BatchNorm does; the running stats stay float32
+        xf = x.float() if low else x
+        weight, bias = self.weight.to(xf.dtype), self.bias.to(xf.dtype)
+        if not one:
+            if self.training:
+                self.num_batches_tracked += 1
+            return F.batch_norm(xf, self.running_mean, self.running_var,
+                                weight, bias, self.training, self.momentum,
+                                self.eps).to(x.dtype)
+        mean = xf.mean((0, 2, 3))
+        var = (xf - mean.view(1, -1, 1, 1)).square().mean((0, 2, 3))
         with torch.no_grad():
-            self.running_mean.lerp_(mean.detach(), self.momentum)
-            self.running_var.lerp_(var.detach(), self.momentum)
+            self.running_mean.lerp_(mean.detach().to(self.running_mean.dtype),
+                                    self.momentum)
+            self.running_var.lerp_(var.detach().to(self.running_var.dtype),
+                                   self.momentum)
             self.num_batches_tracked += 1
-        scale = self.weight * torch.rsqrt(var + self.eps)
-        return ((x - mean.view(1, -1, 1, 1)) * scale.view(1, -1, 1, 1)
-                + self.bias.view(1, -1, 1, 1))
+        scale = weight * torch.rsqrt(var + self.eps)
+        return ((xf - mean.view(1, -1, 1, 1)) * scale.view(1, -1, 1, 1)
+                + bias.view(1, -1, 1, 1)).to(x.dtype)
 
 
 class Norm2d(nn.Module):
@@ -179,6 +195,16 @@ class Bottleneck(nn.Module):
             x = self.downsample_norm(self.downsample_conv(x))
         out = out + x
         return F.relu(out) if self.act_out else out
+
+
+class ResBottleneck(Bottleneck):
+    """ResNet's bottleneck: expansion 4 and the output ReLU (ResNet's
+    ``_ResBottleneck``, ``lednet_tpu/models/backbones/resnet.py:62``, and
+    HRNet's stage 1, ``lednet_tpu/models/backbones/hrnet.py:89``)."""
+    expansion = 4
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, act_out=True, **kwargs)
 
 
 def fold_bn(bn: nn.BatchNorm2d) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -35,5 +35,7 @@ def adaptive_avg_pool2d(x: torch.Tensor, output_size: _Size) -> torch.Tensor:
 
 
 def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
-    """AdaptiveAvgPool2d((1, 1)) keeping the spatial dims."""
-    return x.mean(dim=(-2, -1), keepdim=True)
+    """AdaptiveAvgPool2d((1, 1)) keeping the spatial dims; a bfloat16 map
+    is summed in float32 and the mean cast back, as the JAX package does."""
+    acc = torch.promote_types(x.dtype, torch.float32)
+    return x.mean(dim=(-2, -1), keepdim=True, dtype=acc).to(x.dtype)

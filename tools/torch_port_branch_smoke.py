@@ -40,13 +40,10 @@ def main() -> int:
                        generator=torch.Generator().manual_seed(chip_smoke.SEED))
     x = torch.randint(0, 256, (1, chip_smoke.SIZE, chip_smoke.SIZE, 3),
                       dtype=torch.uint8).cuda()
-    per_forward = {}
     with torch.inference_mode():
         y, _, _ = model.data_preprocessor(x, impl='cuda')
         model.predict(y, 'cuda')
-        with chip_smoke.device_trace(per_forward):
-            y, _, _ = model.data_preprocessor(x, impl='cuda')
-            model.predict(y, 'cuda')
+    _, per_forward = chip_smoke.traced_forward(model, x)
     chip_smoke.say(f'CUDA launches of one flagship forward: {per_forward}')
     del model, x, y
     torch.cuda.empty_cache()

@@ -4,8 +4,8 @@
     python3 tools/torch_port_profile.py [--size 1024] [--iters 20] [--config CFG]
 
 Builds the flagship LED-Net (``configs/LED_Net/lednet_80k_cityscapes-1024x1024.py``,
-or the model of ``--config``: DDRNet, BiSeNetV1, PIDNet and STDC run kernel
-A alone and skip the kernel E readings below)
+or the model of ``--config``: DDRNet, BiSeNetV1, PIDNet, STDC, BiSeNetV2 and
+HRNet run kernel A alone and skip the kernel E readings below)
 with seeded random weights through ``lednet_tpu_torch.apis.init_model``, and
 profiles bs=1 forwards (preprocess + ``predict``) with ``torch.profiler``, once
 through the CUDA kernels and once through the plain module forms.  Prints,
@@ -35,8 +35,8 @@ forward to FILE, to diff two trees' forwards.
 
     python3 tools/torch_port_profile.py --config CFG --train
 
-instead profiles the config's train step (``make_train_step``, TF32 off)
-at its train batch and crop (``chip_smoke.train_batch``; with edge maps
+instead profiles the config's train step (``make_train_step``, TF32 off;
+in bfloat16 where the config sets ``bf16``) at its train batch and crop (``chip_smoke.train_batch``; with edge maps
 where the pipeline has ``GenerateEdge``), ``--iters`` steps after two, with
 the same readings per step.
 
@@ -119,7 +119,8 @@ def train_step(model):
                                          make_train_step)
     cfg = model.cfg
     opt, sched = build_optimizer(model, cfg.optim_wrapper, cfg.param_scheduler)
-    step = make_train_step(model, opt, model.data_preprocessor)
+    step = make_train_step(model, opt, model.data_preprocessor,
+                           amp=bool(cfg.get('bf16', False)))
     state = create_train_state(model, opt, sched)
     imgs, lbl = chip_smoke.train_batch(
         np.random.default_rng(0), cfg.train_dataloader.batch_size,

@@ -34,7 +34,8 @@ of size x size, the first seed, dropout 0 in every head; with their edge
 maps where the config's pipeline has ``GenerateEdge``, as PIDNet's) in
 float64 on the CPU, then in float32 on the CPU and on the card (cuDNN off)
 with their discrete decisions (OHEM, ReLU, max pool, PIDHead's boundary
-gate) pinned to the float64 step's, as ``chip_smoke.decisions`` pins them,
+gate, each ``OHEMPixelSampler``'s keep mask) pinned to the float64 step's,
+as ``chip_smoke.decisions`` pins them,
 and
 prints, in the order the float64 backward reaches them, each leaf module's
 output and input gradient and each parameter's gradient as the float32

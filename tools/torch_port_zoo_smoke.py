@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """The zoo phases of ``chip_smoke.py`` alone, on one NVIDIA GPU.
 
-    python3 tools/torch_port_zoo_smoke.py [--phase 10 | 11 | 10 11]
+    python3 tools/torch_port_zoo_smoke.py [--phase 10 | 11 | 12 | 10 11 12]
 
 Prints the card's name and power limit, builds the kernels, fabricates the
 zoo's Cityscapes tree (``chip_smoke.zoo_tree``) and runs
@@ -14,7 +14,12 @@ phase asked for (default 10):
   against the eager path), DDRNet-23 once, their train steps (timed, and
   held to the CPU's), then DDRNet-23-slim through the train and test CLIs;
 - 11: the same of PIDNet-S and STDC1 (PIDNet-M, PIDNet-L and STDC2 once;
-  PIDNet-S trains on edge maps), then PIDNet-S through the CLIs.
+  PIDNet-S trains on edge maps), then PIDNet-S through the CLIs;
+- 12: ``init_model`` on the card of the 4 BiSeNetV2 and 10 Cityscapes
+  HRNet configs, then as 10 of BiSeNetV2 (its ``-ohem-`` config) and
+  HRNet-W18 (HRNet-W18-Small and W48 once), the ``-amp-`` config's
+  bfloat16 step beside its float32 one (``chip_smoke.bf16_step``), then
+  the ``-amp-`` config and HRNet-W18 through the CLIs.
 
 Exits non-zero if a phase fails or there is no GPU.
 """
@@ -30,7 +35,8 @@ sys.path.insert(0, REPO)
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument('--phase', nargs='+', choices=('10', '11'), default=['10'])
+    ap.add_argument('--phase', nargs='+', choices=('10', '11', '12'),
+                    default=['10'])
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -47,17 +53,24 @@ def main() -> int:
     chip_smoke.say(f'{card}; torch {torch.__version__}, CUDA {torch.version.cuda}')
     _build.build()
     _build.library()
-    phases = {'10': ('10 zoo', chip_smoke.ZOO, chip_smoke.ZOO_WIDE),
-              '11': ('11 pidnet stdc', chip_smoke.PID_STDC,
-                     chip_smoke.PID_STDC_WIDE)}
+
+    def zoo(models, wide):
+        def run(tree):
+            out = chip_smoke.zoo_models(card, models, wide)
+            chip_smoke.zoo_entry_points(card, tree, *models[0])
+            return out
+        return run
+    phases = {'10': ('10 zoo', zoo(chip_smoke.ZOO, chip_smoke.ZOO_WIDE)),
+              '11': ('11 pidnet stdc', zoo(chip_smoke.PID_STDC,
+                                           chip_smoke.PID_STDC_WIDE)),
+              '12': ('12 bisenetv2 hrnet',
+                     lambda tree: chip_smoke.bise_hrnet(card, tree))}
     try:
         with chip_smoke.zoo_tree() as tree:
             for key in args.phase:
-                name, models, wide = phases[key]
+                name, run = phases[key]
                 with chip_smoke.phase(name):
-                    launches, device, a_err = chip_smoke.zoo_models(
-                        card, models, wide)
-                    chip_smoke.zoo_entry_points(card, tree, *models[0])
+                    launches, device, a_err = run(tree)
                 chip_smoke.say(f'phase {key}: launches {launches}; device '
                                f'{device}; kernel A max abs err at float32 '
                                f'output {a_err}')
