@@ -178,6 +178,19 @@ printing one flushed line with its seconds:
    float32 step's, relatively, both timed, peak memory); the ``-amp-`` config
    (the Runner's ``bf16`` path) and HRNet-W18 through the train and test
    CLIs on phase 10's tree.
+13. SegNeXt: ``init_model`` on the card of its 4 configs (``configs/segnext/``,
+   unchanged: MSCAN-T/S/B/L, LightHamHead, 150 ADE20K classes) with their
+   parameter counts; phase 10's checks of SegNeXt-T at full width and bs 1
+   at 1024x1024 (A exact at float32 output, A once per forward and B-E
+   never, kernel path and TF32 defaults against module forms, replay
+   against eager, both timed); SegNeXt-S, B and L one replayed forward each
+   against eager; the train step of T at its config's batch (16 x
+   512x512); the card's step against the CPU's at 2 x 256x256 past the
+   ``LinearLR`` warm-up (at state step ``SEGNEXT_START``, where the update
+   is measurable; at step 0 the lr is 6e-11), with dropout and
+   ``drop_path_rate`` 0 (float64; float32 with ReLU signs pinned); T through
+   the train and test CLIs on a fabricated ADE20K tree (``ADE_TREE_*``
+   frames of two aspects, so val runs two padded shapes).
 
 It prints the card line and a ``{"kernels": [...]}`` line (``launches``:
 the wrappers' count in phase 4; ``device_launches``: the CUDA launches the
@@ -190,7 +203,9 @@ its plain version over phase 9's shapes; ``zoo_launches``,
 ``zoo_max_abs_err``: A's at float32 output; ``pid_stdc_launches``,
 ``pid_stdc_device_launches``, ``pid_stdc_max_abs_err``: the same of phase
 11; ``bise_hrnet_launches``, ``bise_hrnet_device_launches``,
-``bise_hrnet_max_abs_err``: the same of phase 12; E's row also has
+``bise_hrnet_max_abs_err``: the same of phase 12; ``segnext_launches``,
+``segnext_device_launches``, ``segnext_max_abs_err``: the same of phase
+13; E's row also has
 ``device_ms`` and ``cudnn_composition_ms`` per call at the flagship set,
 and ``val_ms``, ``val_plain_ms``, ``val_bound_ms``, ``val_device_ms`` and
 ``val_cudnn_composition_ms`` at the val set, all measured in this run),
@@ -259,6 +274,15 @@ BISE_HRNET_WIDE = (('HRNet-W18-Small',
 BISE_AMP = 'configs/bisenetv2/bisenetv2_fcn_4xb4-amp-160k_cityscapes-1024x1024.py'
 BISE_HRNET_CONFIGS = ('configs/bisenetv2/*.py',
                       'configs/hrnet/fcn_hr*_cityscapes-512x1024.py')
+# phase 13: SegNeXt (ADE20K): T in full, S, B and L once
+SEGNEXT = (('SegNeXt-T', 'configs/segnext/segnext_mscan-t_ade20k-512x512.py'),)
+SEGNEXT_WIDE = tuple((f'SegNeXt-{v.upper()}',
+                      f'configs/segnext/segnext_mscan-{v}_ade20k-512x512.py')
+                     for v in 'sbl')
+SEGNEXT_CONFIGS = ('configs/segnext/*.py',)
+SEGNEXT_START = 2000        # a state step past the LinearLR warm-up (1500)
+ADE_TREE_TRAIN, ADE_TREE_VAL = 6, 2
+ADE_FRAMES_HW = ((480, 640), (720, 480))      # two aspects, as ADE20K's vary
 BF16_U = 2.0 ** -8     # bfloat16's unit roundoff: the amp loss's bound, relative
 CE_LOSSES = [dict(type='CrossEntropyLoss', loss_weight=1.0),
              dict(type='CrossEntropyLoss', loss_weight=0.4)]
@@ -656,9 +680,9 @@ def check_against_plain(name, op, args, kw, tol, errs, log=True):
         errs.append(e_abs)
 
 
-def train_batch(rng, n, size, edges=None):
+def train_batch(rng, n, size, edges=None, classes=19):
     """n seeded BGR uint8 crops of ``size`` (h, w), or size x size, and int64
-    labels of the 19 classes with about 2% at 255 (ignored).  With
+    labels of ``classes`` classes with about 2% at 255 (ignored).  With
     ``edges`` (``GenerateEdge``'s width, for PIDNet) the labels come in
     32-pixel blocks, about 5% of them ignored, as a dict with the
     ``gt_edge_map`` that ``GenerateEdge`` gives them."""
@@ -667,12 +691,12 @@ def train_batch(rng, n, size, edges=None):
     imgs = torch.from_numpy(rng.integers(0, 256, (n, h, w, 3), dtype=np.uint8))
     if edges is None:
         lbl = np.where(rng.random((n, h, w)) < 0.02, 255,
-                       rng.integers(0, 19, (n, h, w)))
+                       rng.integers(0, classes, (n, h, w)))
         return imgs, torch.from_numpy(lbl.astype(np.int64))
     from lednet_tpu_torch.datasets.transforms import GenerateEdge
     coarse = (n, -(-h // 32), -(-w // 32))
     lbl = np.where(rng.random(coarse) < 0.05, 255,
-                   rng.integers(0, 19, coarse))
+                   rng.integers(0, classes, coarse))
     lbl = np.ascontiguousarray(lbl.repeat(32, 1).repeat(32, 2)[:, :h, :w])
     generate = GenerateEdge(edge_width=edges)
     edge = np.stack([generate({'gt_seg_map': m})['gt_edge_map'] for m in lbl])
@@ -697,8 +721,10 @@ def to_device(labels, device):
 
 def train_once(cfg, device, imgs, lbl, seed, dtype=None):
     """One train step of a seeded model of ``cfg`` on ``device`` (its
-    weights cast to ``dtype`` if given): (loss, state_dict on the CPU).
-    ``lbl``: labels or a dict of label maps."""
+    weights cast to ``dtype`` if given), at the state step
+    :func:`start_step` gives: (loss, state_dict on the CPU).  ``lbl``:
+    labels or a dict of label maps."""
+    import dataclasses
     import torch
     from lednet_tpu_torch.apis import init_model
     from lednet_tpu_torch.engine import (build_optimizer, create_train_state,
@@ -709,10 +735,26 @@ def train_once(cfg, device, imgs, lbl, seed, dtype=None):
         model.to(dtype)
     opt, sched = build_optimizer(model, cfg.optim_wrapper, cfg.param_scheduler)
     step = make_train_step(model, opt, model.data_preprocessor)
-    _, logs = step(create_train_state(model, opt, sched), imgs.to(device),
-                   to_device(lbl, device))
+    state = dataclasses.replace(create_train_state(model, opt, sched),
+                                step=start_step(cfg))
+    _, logs = step(state, imgs.to(device), to_device(lbl, device))
     return logs['loss'].item(), {k: v.detach().cpu()
                                  for k, v in model.state_dict().items()}
+
+
+def start_step(cfg):
+    """The state step of the card-against-CPU train step: 0, or
+    SEGNEXT_START where a ``LinearLR`` warm-up starts below 1e-3 of the
+    base lr (SegNeXt's, 1e-6: at step 0 the update is below float32's
+    resolution of the weights, and the comparison would hold nothing)."""
+    ends = [c.get('end', 0) for c in cfg.get('param_scheduler') or []
+            if c.get('type') == 'LinearLR' and c.get('start_factor', 1.0) < 1e-3]
+    if not ends:
+        return 0
+    if max(ends) >= SEGNEXT_START:
+        raise AssertionError(f'the warm-up ends at {max(ends)}, past '
+                             f'SEGNEXT_START')
+    return SEGNEXT_START
 
 
 def train_distance(run, ref):
@@ -863,10 +905,14 @@ def hold_float32(name, card, cpu_runs, exact):
 
 
 def randomize_norms(model, gen):
-    """Non-trivial BatchNorm affine parameters and running stats."""
+    """Non-trivial BatchNorm affine parameters and running stats, and
+    GroupNorm and LayerNorm affine parameters."""
     import torch
     with torch.no_grad():
         for m in model.modules():
+            if isinstance(m, (torch.nn.GroupNorm, torch.nn.LayerNorm)):
+                m.weight.copy_(1 + 0.1 * torch.randn(m.weight.shape, generator=gen))
+                m.bias.copy_(0.1 * torch.randn(m.bias.shape, generator=gen))
             if isinstance(m, torch.nn.BatchNorm2d):
                 m.weight.copy_(1 + 0.1 * torch.randn(m.weight.shape, generator=gen))
                 m.bias.copy_(0.1 * torch.randn(m.bias.shape, generator=gen))
@@ -1409,23 +1455,30 @@ def branch_path(card, expected):
 
 def without_dropout(cfg):
     """cfg options that set dropout 0 in the decode head and every
-    auxiliary head where the config has some (two RNG streams cannot drop
-    the same units), and a note saying so ('' when none had any)."""
+    auxiliary head where the config has some, and the backbone's
+    ``drop_path_rate`` 0 where it has stochastic depth (two RNG streams
+    cannot drop the same units or samples), and a note saying so ('' when
+    none had any)."""
     heads = [cfg.model.decode_head] + list(cfg.model.get('auxiliary_head') or [])
-    if not any(h.get('dropout_ratio', 0.1) for h in heads):
-        return {}, ''
-    extra = {'model.decode_head.dropout_ratio': 0.0}
-    if cfg.model.get('auxiliary_head'):
-        extra['model.auxiliary_head'] = [dict(h, dropout_ratio=0.0)
-                                         for h in cfg.model.auxiliary_head]
-    return extra, ', dropout 0 in every head for this comparison only'
+    extra, notes = {}, []
+    if any(h.get('dropout_ratio', 0.1) for h in heads):
+        extra['model.decode_head.dropout_ratio'] = 0.0
+        if cfg.model.get('auxiliary_head'):
+            extra['model.auxiliary_head'] = [dict(h, dropout_ratio=0.0)
+                                             for h in cfg.model.auxiliary_head]
+        notes.append('dropout 0 in every head')
+    if cfg.model.backbone.get('drop_path_rate'):
+        extra['model.backbone.drop_path_rate'] = 0.0
+        notes.append('drop_path_rate 0')
+    return extra, (', ' + ' and '.join(notes) + ' for this comparison only'
+                   if notes else '')
 
 
 def zoo_models(card, models=ZOO, wide=ZOO_WIDE):
-    """Phases 10-12, inference and training of ``models`` at their
+    """Phases 10-13, inference and training of ``models`` at their
     configs' widths (seeded weights, non-trivial BatchNorm stats; phase 10:
     DDRNet-23-slim and BiSeNetV1 R-18, phase 11: PIDNet-S and STDC1, phase
-    12: BiSeNetV2 and HRNet-W18), and
+    12: BiSeNetV2 and HRNet-W18, phase 13: SegNeXt-T), and
     one forward of each of ``wide``; returns the kernels' wrapper launches
     and device launches of their main path and kernel A's largest error at
     float32 output."""
@@ -1447,6 +1500,7 @@ def zoo_models(card, models=ZOO, wide=ZOO_WIDE):
     for label, config in models:
         model = init_model(config, device='cuda', generator=gen)
         randomize_norms(model, gen)
+        classes = model.cfg.model.decode_head.num_classes
         pre = model.data_preprocessor
         if pre.out_dtype != torch.float32:
             raise AssertionError(f'{label}: the preprocessor emits {pre.out_dtype}')
@@ -1497,7 +1551,7 @@ def zoo_models(card, models=ZOO, wide=ZOO_WIDE):
                 say(f'  {label} image {i}: {name} vs float32 module forms rel '
                     f'{e:.3e} (tol {TOL_MODEL:g}), argmax agreement '
                     f'{agree:.6f}, max|logit| {np.abs(lb).max():.3f}')
-                if la.shape != (SIZE, SIZE, 19) or not (
+                if la.shape != (SIZE, SIZE, classes) or not (
                         np.isfinite(la).all() and e <= TOL_MODEL
                         and agree >= MIN_ARGMAX_AGREEMENT):
                     raise AssertionError(f'{label} image {i}: {name} disagrees')
@@ -1555,12 +1609,13 @@ def zoo_models(card, models=ZOO, wide=ZOO_WIDE):
         batch = cfg.train_dataloader.batch_size
         crop = tuple(cfg.model.data_preprocessor.size)
         edges = edge_width(cfg)
+        classes = cfg.model.decode_head.num_classes
         train_model = init_model(cfg, device='cuda', generator=gen)
         opt, sched = build_optimizer(train_model, cfg.optim_wrapper,
                                      cfg.param_scheduler)
         train = make_train_step(train_model, opt, train_model.data_preprocessor)
         state = create_train_state(train_model, opt, sched)
-        t_imgs, t_lbl = train_batch(rng, batch, crop, edges)
+        t_imgs, t_lbl = train_batch(rng, batch, crop, edges, classes)
         t_imgs, t_lbl = t_imgs.cuda(), to_device(t_lbl, 'cuda')
         torch.cuda.reset_peak_memory_stats()
         held = torch.cuda.memory_allocated()
@@ -1594,7 +1649,9 @@ def zoo_models(card, models=ZOO, wide=ZOO_WIDE):
         extra['model.data_preprocessor.size'] = (256, 256)
         cfg.merge_from_dict(extra)
         s_imgs, s_lbl = train_batch(np.random.default_rng(SEED + 11), 2, 256,
-                                    edges)
+                                    edges, classes)
+        if start_step(cfg):
+            note += f', at state step {start_step(cfg)} (past the warm-up)'
         # float64 holds the step's arithmetic to phase 6's bounds.  A float32
         # step is held with its discrete decisions (OHEM's kept pixels, ReLU
         # signs, max pool choices, PIDHead's boundary gate) pinned to the CPU
@@ -1771,17 +1828,18 @@ def zoo_tree():
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def zoo_entry_points(card, tmp, label, config):
-    """Phases 10-12, entry points: ``config`` through the train CLI
-    (``ZOO_ITERS`` steps, one val at the end) on the tree of
-    :func:`zoo_tree` in ``tmp``, and the test CLI on the last checkpoint,
-    which must equal that val."""
+def zoo_entry_points(card, tmp, label, config, tree='cityscapes'):
+    """Phases 10-13, entry points: ``config`` through the train CLI
+    (``ZOO_ITERS`` steps, one val at the end) on the tree ``tree`` in
+    ``tmp`` (phases 10-12: :func:`zoo_tree`'s Cityscapes tree; phase 13:
+    an ADE20K one), and the test CLI on the last checkpoint, which must
+    equal that val."""
     from lednet_tpu_torch.config import Config
 
     cfg = Config.fromfile(config)
     crop = tuple(cfg.model.data_preprocessor.size)
     loader = cfg.train_dataloader
-    data = os.path.join(tmp, 'cityscapes')
+    data = os.path.join(tmp, tree)
     options = [f'{k}.dataset.data_root={data}' for k in
                ('train_dataloader', 'val_dataloader', 'test_dataloader')]
     work = os.path.join(tmp, 'work_' + label.replace(' ', '_'))
@@ -1821,6 +1879,37 @@ def zoo_entry_points(card, tmp, label, config):
     if tested != vals[ZOO_ITERS]:
         raise AssertionError(f'the test CLI does not reproduce the val at '
                              f'step {ZOO_ITERS}')
+
+
+def segnext(card, tmp):
+    """Phase 13: ``init_model`` on the card of every SegNeXt config
+    (SEGNEXT_CONFIGS) with its parameter count, SegNeXt-T through
+    :func:`zoo_models` (S, B and L once each), then T through the CLIs on a
+    fabricated ADE20K tree in ``tmp``; returns what ``zoo_models`` does."""
+    import glob
+    from lednet_tpu_torch.apis import init_model
+    from lednet_tpu_torch.datasets.synthetic import make_ade20k_tree
+    configs = sorted(c for pattern in SEGNEXT_CONFIGS for c in glob.glob(pattern))
+    t0 = time.perf_counter()
+    sizes = {}
+    for config in configs:
+        model = init_model(config, device='cuda')
+        sizes[os.path.basename(config)] = sum(p.numel()
+                                              for p in model.parameters())
+        del model
+    say(f'  init_model on the card, {len(configs)} configs in '
+        f'{time.perf_counter() - t0:.2f} s; parameters: ' +
+        ', '.join(f'{k} {v}' for k, v in sizes.items()))
+    if len(configs) != 4:
+        raise AssertionError(f'{len(configs)} SegNeXt configs, not 4')
+    out = zoo_models(card, SEGNEXT, SEGNEXT_WIDE)
+    t0 = time.perf_counter()
+    make_ade20k_tree(os.path.join(tmp, 'ade'), n_train=ADE_TREE_TRAIN,
+                     n_val=ADE_TREE_VAL, sizes_hw=ADE_FRAMES_HW, seed=SEED + 13)
+    say(f'  fabricated {ADE_TREE_TRAIN} train and {ADE_TREE_VAL} val ADE20K '
+        f'frames at {ADE_FRAMES_HW} (h, w) in {time.perf_counter() - t0:.2f} s')
+    zoo_entry_points(card, tmp, *SEGNEXT[0], tree='ade')
+    return out
 
 
 # ---------------------------------------------------------------- phases
@@ -2214,6 +2303,8 @@ def main() -> int:
             zoo_entry_points(card, tree, *PID_STDC[0])
         with phase('12 bisenetv2 hrnet'):
             bh_launches, bh_device, bh_a_err = bise_hrnet(card, tree)
+        with phase('13 segnext'):
+            sn_launches, sn_device, sn_a_err = segnext(card, tree)
     for row in rows:
         row['entry_point_launches'] = entry_launches[row['name']]
         row['entry_point_device_launches'] = entry_device[row['name']]
@@ -2232,6 +2323,10 @@ def main() -> int:
         row['bise_hrnet_device_launches'] = bh_device[row['name']]
         row['bise_hrnet_max_abs_err'] = (bh_a_err if row['name'] ==
                                          'normalize_image' else None)
+        row['segnext_launches'] = sn_launches[row['name']]
+        row['segnext_device_launches'] = sn_device[row['name']]
+        row['segnext_max_abs_err'] = (sn_a_err if row['name'] ==
+                                      'normalize_image' else None)
 
     say(card)
     say(json.dumps({'kernels': rows}))

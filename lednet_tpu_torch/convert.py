@@ -7,9 +7,9 @@ The port's modules carry the flax module names, so the mapping is by path:
   the raw SESP branch kernels ``spp_dw{i}`` / ``spp_dw_v2_{i}`` (3, 3, 1, n);
 - BatchNorm ``scale``/``bias`` + ``mean``/``var`` -> ``weight``/``bias`` +
   ``running_mean``/``running_var`` (+ ``num_batches_tracked`` = 0); a
-  LayerNorm ``scale`` -> ``weight``;
-- PReLU ``alpha``, GETB ``relative_position_bias_table`` and biases keep
-  their names;
+  LayerNorm's or GroupNorm's ``scale`` -> ``weight``;
+- PReLU ``alpha``, GETB ``relative_position_bias_table``, MSCAN's
+  ``layer_scale_{1,2}`` and biases keep their names;
 - the segmentor's ``_backbone``/``_decode_head`` lose the leading
   underscore, and its auxiliary heads ``_aux_heads_{i}`` become
   ``aux_heads.{i}``;
@@ -27,7 +27,12 @@ PIDHead's ``{i,p,d}_head`` / ``{,p_,d_}cls_seg``, STDCNet's
 ``stage{s}_{j}`` (``conv{i}`` / ``downsample`` / ``skip_dw`` /
 ``skip_pw``), STDCContextPathNet's ``conv_avg`` / ``arm{i}`` / ``conv{i}``
 / ``ffm`` (``conv0`` / ``attn1`` / ``attn2``), FCNHead's ``conv{i}`` /
-``conv_cat`` / ``cls``.  Any other automatic flax name (``ClassName_{n}``)
+``conv_cat`` / ``cls``, MSCAN's ``stem{1,2}`` / ``down{i}`` /
+``down_norm{i}`` / ``s{i}_b{j}`` (``norm{1,2}``, ``proj_{1,2}``, ``attn``
+with ``conv0`` / ``conv{k}_{1,2}`` / ``conv_mix``, ``fc{1,2}``, ``dw``) /
+``stage_norm{i}``, and LightHamHead's ``squeeze`` / ``hamburger``
+(``ham_in`` / ``ham_out``) / ``align`` / ``cls``; a norm's module is
+``bn``, ``gn`` or ``ln`` by its type.  Any other automatic flax name (``ClassName_{n}``)
 has no counterpart in the port and raises.
 
 A checkpoint file is a ``.npz`` whose keys are ``'/'``-joined paths under a

@@ -4,7 +4,8 @@ Importing this package registers the datasets in ``DATASETS`` and the
 transforms in ``TRANSFORMS``.
 """
 from lednet_tpu_torch.datasets import transforms  # noqa: F401
-from lednet_tpu_torch.datasets.basesegdataset import (BaseSegDataset,
+from lednet_tpu_torch.datasets.basesegdataset import (ADE20KDataset,
+                                                      BaseSegDataset,
                                                       CityscapesDataset,
                                                       Compose,
                                                       PascalVOCDataset)
@@ -13,6 +14,6 @@ from lednet_tpu_torch.datasets.loader import (DataLoader, DefaultSampler,
                                               InfiniteSampler,
                                               build_dataloader, collate)
 
-__all__ = ['BaseSegDataset', 'CityscapesDataset', 'Compose', 'DataLoader',
+__all__ = ['ADE20KDataset', 'BaseSegDataset', 'CityscapesDataset', 'Compose', 'DataLoader',
            'DefaultSampler', 'DevicePrefetcher', 'InfiniteSampler',
            'PascalVOCDataset', 'build_dataloader', 'collate']

@@ -2,7 +2,7 @@
 
 Counterpart of ``lednet_tpu/datasets/basesegdataset.py`` (``Compose`` :31,
 ``BaseSegDataset`` :44 with ``load_data_list`` :104, ``PascalVOCDataset``
-:154, ``CityscapesDataset`` :169): suffix-pair directory scanning (a sorted
+:154, ``CityscapesDataset`` :169, ``ADE20KDataset`` :190): suffix-pair directory scanning (a sorted
 recursive walk) or an ``ann_file`` split list, ``METAINFO`` classes and
 palette, ``reduce_zero_label``, the pipeline run per item.
 
@@ -176,3 +176,17 @@ class CityscapesDataset(BaseSegDataset):
                  seg_map_suffix='_gtFine_labelTrainIds.png', **kwargs):
         super().__init__(img_suffix=img_suffix, seg_map_suffix=seg_map_suffix,
                          **kwargs)
+
+
+@DATASETS.register_module()
+class ADE20KDataset(BaseSegDataset):
+    """ADE20K: ``.jpg`` images with ``.png`` labels 0..150, where 0 is
+    "other"; ``reduce_zero_label`` maps 0 to 255 (ignored) and x to x - 1,
+    so that the 150 classes are 0..149."""
+    METAINFO = dict(classes=_metainfo.ADE20K_CLASSES,
+                    palette=_metainfo.ADE20K_PALETTE)
+
+    def __init__(self, img_suffix='.jpg', seg_map_suffix='.png',
+                 reduce_zero_label=True, **kwargs):
+        super().__init__(img_suffix=img_suffix, seg_map_suffix=seg_map_suffix,
+                         reduce_zero_label=reduce_zero_label, **kwargs)

@@ -17,6 +17,16 @@ green-grey background crossed by thin, branching brown strokes (the branch
 class: sparse and a few pixels wide); an optional portrait frame is stored
 turned on its side with an EXIF orientation tag, as phone photos are.
 
+:func:`make_ade20k_tree`: the ADEChallengeData2016 layout of the SegNeXt
+configs: ``images/{training,validation}/<name>.jpg`` written with the
+port's JPEG encoder and ``annotations/{training,validation}/<name>.png``
+gray label maps of 0..150 (0 the unlabelled "other", which
+``reduce_zero_label`` ignores: drawn like the classes, and about 5% of
+the pixels besides), frames in turn at each size of
+``sizes_hw``, so that the val images come in shapes of different aspect.
+Each label map is a grid of blocks of random labels; each image is its
+labels' ADE20K palette colors plus Gaussian noise.
+
 Everything follows from ``seed``.
 """
 from __future__ import annotations
@@ -28,24 +38,29 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 
 from lednet_tpu_torch.datasets import imageio
-from lednet_tpu_torch.datasets.metainfo import (APPLE_BRANCH_PALETTE,
+from lednet_tpu_torch.datasets.metainfo import (ADE20K_PALETTE,
+                                                APPLE_BRANCH_PALETTE,
                                                 CITYSCAPES_PALETTE)
 
 
 def fake_frame(rng: np.random.Generator, size_hw: Tuple[int, int],
                grid: Tuple[int, int] = (8, 16), ignored: float = 0.02,
-               noise: float = 20.0) -> Tuple[np.ndarray, np.ndarray]:
-    """(BGR uint8 image, uint8 trainId labels) of ``size_hw``."""
+               noise: float = 20.0, palette=CITYSCAPES_PALETTE
+               ) -> Tuple[np.ndarray, np.ndarray]:
+    """(BGR uint8 image, uint8 labels) of ``size_hw``: labels of
+    ``len(palette)`` classes (Cityscapes' trainIds by default), about
+    ``ignored`` of them at 255."""
     h, w = size_hw
     gh, gw = grid
-    cells = rng.integers(0, len(CITYSCAPES_PALETTE), (gh, gw))
+    cells = rng.integers(0, len(palette), (gh, gw))
     rows = np.minimum(np.arange(h) * gh // h, gh - 1)
     cols = np.minimum(np.arange(w) * gw // w, gw - 1)
     labels = cells[rows][:, cols].astype(np.uint8)
-    palette_bgr = np.asarray(CITYSCAPES_PALETTE, np.float32)[:, ::-1]
+    palette_bgr = np.asarray(palette, np.float32)[:, ::-1]
     img = palette_bgr[labels] + rng.normal(0.0, noise, (h, w, 3)).astype(np.float32)
     img = np.clip(img, 0, 255).astype(np.uint8)
-    labels[rng.random((h, w)) < ignored] = 255
+    if ignored:
+        labels[rng.random((h, w)) < ignored] = 255
     return img, labels
 
 
@@ -155,4 +170,30 @@ def make_branch_tree(root: str, n_train: int = 8, n_val: int = 4,
     for split, names in splits.items():
         with open(osp.join(root, f'{split}.txt'), 'w', encoding='utf-8') as f:
             f.write(''.join(n + '\n' for n in names))
+    return root
+
+
+def make_ade20k_tree(root: str, n_train: int = 8, n_val: int = 4,
+                     sizes_hw: Sequence[Tuple[int, int]] = ((480, 640),
+                                                            (720, 480)),
+                     unlabelled: float = 0.05, seed: int = 0) -> str:
+    """Write the ADE20K tree under ``root`` (JPEG quality 95, 4:2:0);
+    returns ``root``.  Frame i of each split has size ``sizes_hw[i % n]``;
+    label 0 (ignored after ``reduce_zero_label``) is drawn like any of the
+    150 classes, with the color gray, and about ``unlabelled`` of the
+    pixels are 0 besides, as ADE20K leaves some pixels unlabelled."""
+    rng = np.random.default_rng(seed)
+    palette = [[128, 128, 128]] + list(ADE20K_PALETTE)
+    for split, n in (('training', n_train), ('validation', n_val)):
+        for sub in ('images', 'annotations'):
+            os.makedirs(osp.join(root, sub, split), exist_ok=True)
+        for i in range(n):
+            name = f'ADE_{"train" if split == "training" else "val"}_{i:08d}'
+            hw = sizes_hw[i % len(sizes_hw)]
+            img, labels = fake_frame(rng, hw, grid=(6, 8), ignored=0.0,
+                                     palette=palette)
+            labels[rng.random(hw) < unlabelled] = 0
+            imageio.imwrite(osp.join(root, 'images', split, name + '.jpg'), img)
+            imageio.imwrite(osp.join(root, 'annotations', split, name + '.png'),
+                            labels)
     return root

@@ -1,5 +1,5 @@
-"""Core NN bricks: PReLU, BatchNorm, Norm2d, ConvModule, BasicBlock,
-Bottleneck, ResBottleneck.
+"""Core NN bricks: PReLU, BatchNorm, LayerNorm2d, Norm2d, ConvModule,
+BasicBlock, Bottleneck, ResBottleneck, DropPath.
 
 Counterpart of ``lednet_tpu/models/layers.py``.  Modules here take and return
 NCHW tensors (torch's layout); submodule and parameter names follow the flax
@@ -30,13 +30,16 @@ class PReLU(nn.Module):
 
 
 def build_activation(act_cfg: Optional[Dict]) -> nn.Module:
-    """mmcv ``build_activation_layer`` for the activation LED-Net's configs
-    use (ReLU); ``act_cfg=None`` means identity."""
+    """mmcv ``build_activation_layer`` for the activations the port's
+    configs use: ReLU and GELU (exact, erf); ``act_cfg=None`` means
+    identity."""
     if act_cfg is None:
         return nn.Identity()
-    if act_cfg['type'] != 'ReLU':
-        raise ValueError(f"Unsupported activation in the port: {act_cfg['type']}")
-    return nn.ReLU()
+    if act_cfg['type'] == 'ReLU':
+        return nn.ReLU()
+    if act_cfg['type'] == 'GELU':
+        return nn.GELU()
+    raise ValueError(f"Unsupported activation in the port: {act_cfg['type']}")
 
 
 class BatchNorm(nn.BatchNorm2d):
@@ -80,21 +83,45 @@ class BatchNorm(nn.BatchNorm2d):
                 + bias.view(1, -1, 1, 1)).to(x.dtype)
 
 
+class LayerNorm2d(nn.LayerNorm):
+    """LayerNorm over the channels of an NCHW map (flax ``nn.LayerNorm`` on
+    the last axis of NHWC)."""
+
+    def forward(self, x):
+        return F.layer_norm(x.permute(0, 2, 3, 1), self.normalized_shape,
+                            self.weight, self.bias, self.eps).permute(0, 3, 1, 2)
+
+
 class Norm2d(nn.Module):
-    """Normalization selected by an mmseg ``norm_cfg``.  ``SyncBN`` is
-    BatchNorm on one card."""
+    """Normalization selected by an mmseg ``norm_cfg``, named as in the
+    JAX package: ``bn`` (``BN``, ``BN2d``; ``SyncBN`` is BatchNorm on one
+    card), ``gn`` (``GN``: ``num_groups``, 32 by default, halved until it
+    divides the channels, as ``lednet_tpu/models/layers.py:147-153`` does)
+    or ``ln`` (``LN``: over the channels)."""
 
     def __init__(self, norm_cfg: Optional[Dict], channels: int):
         super().__init__()
         cfg = norm_cfg or dict(type='BN')
         norm_type = cfg.get('type', 'BN')
-        if norm_type not in ('BN', 'SyncBN', 'BN2d'):
+        eps = cfg.get('eps', 1e-5)
+        if norm_type in ('BN', 'SyncBN', 'BN2d'):
+            self.kind = 'bn'
+            self.bn = BatchNorm(channels, eps=eps,
+                                momentum=cfg.get('momentum', 0.1))
+        elif norm_type == 'GN':
+            groups = cfg.get('num_groups', 32)
+            while channels % groups:
+                groups //= 2
+            self.kind = 'gn'
+            self.gn = nn.GroupNorm(max(groups, 1), channels, eps=eps)
+        elif norm_type == 'LN':
+            self.kind = 'ln'
+            self.ln = LayerNorm2d(channels, eps=eps)
+        else:
             raise ValueError(f'Unsupported norm type in the port: {norm_type}')
-        self.bn = BatchNorm(channels, eps=cfg.get('eps', 1e-5),
-                            momentum=cfg.get('momentum', 0.1))
 
     def forward(self, x):
-        return self.bn(x)
+        return getattr(self, self.kind)(x)
 
 
 class ConvModule(nn.Module):
@@ -207,6 +234,34 @@ class ResBottleneck(Bottleneck):
         super().__init__(*args, act_out=True, **kwargs)
 
 
+def drop_path_rates(drop_path_rate: float, depths) -> list:
+    """Per-block stochastic-depth rates, linear over the total depth
+    (``lednet_tpu/models/layers.py:277``)."""
+    total = sum(depths)
+    return [drop_path_rate * i / max(total - 1, 1) for i in range(total)]
+
+
+class DropPath(nn.Module):
+    """Per-sample stochastic depth: in training, each sample's branch is
+    kept with probability 1 - ``rate`` and scaled by 1 / (1 - ``rate``),
+    else zeroed; the identity in eval or at rate 0.  The mask is drawn from
+    torch's default generator of the input's device, as ``nn.Dropout``
+    draws its own, so one seed governs both."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x):
+        if self.rate == 0.0 or not self.training:
+            return x
+        keep = 1.0 - self.rate
+        mask = torch.empty((x.shape[0],) + (1,) * (x.dim() - 1),
+                           dtype=x.dtype, device=x.device).bernoulli_(keep)
+        return torch.where(mask.bool(), x / keep, torch.zeros((), dtype=x.dtype,
+                                                              device=x.device))
+
+
 def fold_bn(bn: nn.BatchNorm2d) -> Tuple[torch.Tensor, torch.Tensor]:
     """Eval-mode BatchNorm of a module as a per-channel (scale, bias) pair."""
     return bn_fold(bn.weight, bn.bias, bn.running_mean, bn.running_var, bn.eps)
@@ -247,19 +302,23 @@ def _normal_(t: torch.Tensor, std: float, generator: torch.Generator) -> None:
 @torch.no_grad()
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:
     """Seeded initialisation matching the JAX package's initialisers: conv
-    kernels kaiming-normal (fan_out, relu gain), conv biases 0, BatchNorm
-    scale 1 / bias 0 / running mean 0 / var 1, PReLU 0.25, relative-position
-    tables normal(0.02) clipped at two standard deviations.  Every parameter is overwritten, so the
-    result depends on ``generator`` alone."""
+    kernels kaiming-normal (fan_out, relu gain), conv biases 0, BatchNorm,
+    GroupNorm and LayerNorm scale 1 / bias 0, BatchNorm running mean 0 /
+    var 1, PReLU 0.25, MSCAN's ``layer_scale_{1,2}`` 1e-2,
+    relative-position tables normal(0.02) clipped at two standard
+    deviations.  Every parameter is overwritten, so the result depends on
+    ``generator`` alone; a parameter of no known kind raises."""
     done = set()
     for mod in module.modules():
         for name, p in mod.named_parameters(recurse=False):
             if isinstance(mod, nn.Conv2d) and name == 'bias':
                 p.zero_()
-            elif isinstance(mod, nn.BatchNorm2d):
+            elif isinstance(mod, (nn.BatchNorm2d, nn.GroupNorm, nn.LayerNorm)):
                 p.fill_(1.0 if name == 'weight' else 0.0)
             elif isinstance(mod, PReLU):
                 p.fill_(0.25)
+            elif name in ('layer_scale_1', 'layer_scale_2'):
+                p.fill_(1e-2)
             elif name == 'relative_position_bias_table':
                 p.copy_(torch.clamp(torch.randn(p.shape, generator=generator),
                                     -2.0, 2.0) * 0.02)

@@ -59,6 +59,9 @@ from lednet_tpu_torch.datasets.synthetic import branch_frame, make_branch_tree
 from lednet_tpu_torch.engine import build_optimizer, create_train_state, make_train_step
 from lednet_tpu_torch.engine.runner import Runner
 from test_torch_port_common import REPO, jax_variables, random_variables
+from test_torch_port_common import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures('one_thread')
 
 BRANCH = osp.join(REPO, 'configs/LED_Net/lednet_80k_branch-512x1024.py')
 METRIC_TOL = 0.05         # percentage points, port test against JAX test
@@ -67,16 +70,6 @@ TINY = {'model.backbone.channels': 16, 'model.backbone.ppm_channels': 32,
         'val_batch_size': 1, 'vis_backends': None,
         'train_dataloader.num_workers': 2, 'val_dataloader.num_workers': 2}
 LOADERS = ('train_dataloader', 'val_dataloader', 'test_dataloader')
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    saved = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(saved)
 
 
 @pytest.fixture(scope='module')

@@ -27,6 +27,21 @@ torch.backends.cudnn.allow_tf32 = False
 torch.backends.cuda.matmul.allow_tf32 = False
 
 
+@pytest.fixture
+def one_thread():
+    """One torch thread inside the test, the caller's count restored after.
+    torch's multi-threaded CPU autograd aborts the process after the XLA
+    CPU runtime has run in it, and six test workers each running torch
+    (and XLA) on every core oversubscribe the machine.  Port test files use
+    it on every test (``pytestmark``)."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(saved)
+
+
 def _fill(path, shape, rng):
     leaf = path[-1]
     parent = path[-2] if len(path) > 1 else ''

@@ -41,6 +41,9 @@ from lednet_tpu_torch.ops.kernels.sesp_pyramid import (E_CTAS_PER_SM, SMS,
                                                        reduce_config,
                                                        sesp_pyramid_plain)
 from test_torch_port_common import nchw, nhwc, rel_err
+from test_torch_port_common import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures('one_thread')
 
 MEAN = [123.675, 116.28, 103.53]
 STD = [58.395, 57.12, 57.375]

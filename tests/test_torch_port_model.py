@@ -23,6 +23,9 @@ from lednet_tpu_torch.config import Config
 from lednet_tpu_torch.convert import save_npz_variables
 from test_torch_port_common import (FLAGSHIP, jax_variables, load_port, nchw,
                                     random_variables, rel_err)
+from test_torch_port_common import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures('one_thread')
 
 SMALL = {'model.backbone.channels': 8, 'model.backbone.ppm_channels': 32,
          'model.decode_head.in_channels': 32, 'model.decode_head.channels': 16,

@@ -28,6 +28,9 @@ from lednet_tpu_torch.models.decode_heads import led_head
 from lednet_tpu_torch.ops.kernels import conv3x3
 from test_torch_port_common import (jax_variables, load_port, nchw, nhwc,
                                     random_variables, rel_err)
+from test_torch_port_common import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures('one_thread')
 
 TOL = 1e-5
 BN = dict(type='SyncBN')

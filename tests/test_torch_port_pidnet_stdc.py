@@ -35,8 +35,12 @@ and holds them together:
   bounds of ``tests/test_torch_port_train.py``);
 - ``chip_smoke.decisions`` records and pins PIDHead's boundary gate.
 
-torch's CPU autograd runs on one thread here (``one_thread``): it aborts
-the process when it runs multi-threaded after the XLA CPU runtime has run.
+torch runs on one thread in every test here (``one_thread``): its CPU
+autograd aborts the process when it runs multi-threaded after the XLA CPU
+runtime has run, and six workers' threads oversubscribe the cores.  A
+segmentor's JAX ``predict``, which runs once, runs op by op, without
+``jax.jit``: XLA:CPU's whole-graph compile of a full-width model costs more
+CPU time than running it op by op once.
 """
 import jax
 import jax.numpy as jnp
@@ -58,7 +62,10 @@ from lednet_tpu_torch.engine import (build_optimizer, create_train_state,
 from lednet_tpu_torch.registry import MODELS
 from test_torch_port_common import (REPO, jax_variables, load_port, nchw,
                                     nhwc, random_variables, rel_err)
+from test_torch_port_common import one_thread  # noqa: F401
 from test_torch_port_zoo import _apply, _hold, _labels, _normal, loss_variables
+
+pytestmark = pytest.mark.usefixtures('one_thread')
 
 PIDNET = {v: f'{REPO}/configs/pidnet/pidnet-{v}_cityscapes-1024x1024.py'
           for v in 'sml'}
@@ -70,16 +77,6 @@ TOL_MODEL = 1e-4           # whole segmentors, rel to the largest logit
 def registered():
     import lednet_tpu
     lednet_tpu.register_all_modules()
-
-
-@pytest.fixture
-def one_thread():
-    saved = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(saved)
 
 
 def _blocky_labels(shape, n_classes, seed, block=4, ignored=0.1):
@@ -398,11 +395,10 @@ def _segmentor_pair(config, seed):
     jpre = JMODELS.build(dict(jcfg.model.data_preprocessor))
     params, stats = loss_variables(jmodel, (1, 64, 64), seed=seed)
     variables = jax_variables(params, stats)
-    jpredict = jax.jit(lambda v, x: jmodel.apply(v, x, method='predict'))
 
     def jax_logits(imgs):
         x, _, _ = jpre(jnp.asarray(imgs), None, training=False)
-        return np.asarray(jpredict(variables, x))
+        return np.asarray(jmodel.apply(variables, x, method='predict'))
     model = init_model(config, device='cpu')
     sd = flax_to_state_dict(params, stats)
     assert set(sd) == set(model.state_dict())

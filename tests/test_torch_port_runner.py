@@ -45,6 +45,9 @@ from lednet_tpu_torch.engine.checkpoint import find_latest_checkpoint
 from lednet_tpu_torch.engine.runner import Runner
 from test_torch_port_common import (FLAGSHIP, REPO, jax_variables,
                                     random_variables)
+from test_torch_port_common import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures('one_thread')
 
 METRIC_TOL = 0.05         # percentage points, port val against JAX val
 SMALL = {'model.backbone.channels': 8, 'model.backbone.ppm_channels': 32,
@@ -55,16 +58,6 @@ SMALL = {'model.backbone.channels': 8, 'model.backbone.ppm_channels': 32,
          'train_cfg.max_iters': 3, 'train_cfg.val_interval': 3,
          'default_hooks.checkpoint.interval': 3,
          'default_hooks.logger.interval': 1, 'vis_backends': None}
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    saved = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(saved)
 
 
 @pytest.fixture(scope='module')
@@ -251,16 +244,19 @@ def test_unported_options_raise(tree, tmp_path):
 def test_val_matches_jax_runner(tree, tmp_path):
     import lednet_tpu
     from lednet_tpu.engine.runner import Runner as JRunner
+    from lednet_tpu.engine.state import TrainState as JTrainState
     lednet_tpu.register_all_modules()
     one_at_a_time = {'val_batch_size': 1}       # one small JAX compile
     jrunner = JRunner(tiny_cfg(tree, JConfig, **one_at_a_time),
                       work_dir=str(tmp_path / 'jax'))
-    state = jrunner.init_state(sample_shape=(1, 128, 128, 3))
     params, stats = random_variables(jrunner.model, jnp.zeros((1, 64, 64, 3)),
                                      seed=4, train=False)
     variables = jax_variables(params, stats)
-    jrunner.state = state.replace(params=variables['params'],
-                                  batch_stats=variables['batch_stats'])
+    # the eval step reads only the weights: no jitted init, no optimizer
+    # state to compile
+    jrunner.state = JTrainState(step=jnp.asarray(0, jnp.int32),
+                                params=variables['params'],
+                                batch_stats=variables['batch_stats'], opt_state=())
     want = jrunner.val()
 
     runner = Runner(tiny_cfg(tree, **one_at_a_time), work_dir=str(tmp_path / 'port'),

@@ -22,8 +22,9 @@ BatchNorms sees two values per channel, and float32 rounding alone moves
 their running stats by more than the 1e-5 bound.
 
 torch's multi-threaded CPU autograd aborts the process when it runs after
-the XLA CPU runtime has run in it, so every torch backward here runs under
-the ``one_thread`` fixture (one torch thread, restored after).
+the XLA CPU runtime has run in it, and six workers' threads oversubscribe
+the cores, so every test here runs under the ``one_thread`` fixture (one
+torch thread, restored after).
 """
 import subprocess
 import sys
@@ -51,6 +52,9 @@ from lednet_tpu_torch.models.losses import cross_entropy as ce
 from lednet_tpu_torch.registry import MODELS
 from test_torch_port_common import (FLAGSHIP, REPO, jax_variables,
                                     random_variables, rel_err)
+from test_torch_port_common import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures('one_thread')
 
 SMALL = {'model.backbone.channels': 8, 'model.backbone.ppm_channels': 32,
          'model.decode_head.in_channels': 32, 'model.decode_head.channels': 16,
@@ -59,16 +63,6 @@ SMALL = {'model.backbone.channels': 8, 'model.backbone.ppm_channels': 32,
 TRAIN = dict(SMALL, **{'model.data_preprocessor.size': (128, 128)})
 CE_PAIR = [dict(type='CrossEntropyLoss', loss_weight=1.0),
            dict(type='CrossEntropyLoss', loss_weight=0.4)]
-
-
-@pytest.fixture
-def one_thread():
-    saved = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(saved)
 
 
 def _logits(shape, seed, scale=3.0):

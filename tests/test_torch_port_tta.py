@@ -39,6 +39,9 @@ from lednet_tpu_torch.datasets.transforms.fused import FusedRandomResizeCropFlip
 from lednet_tpu_torch.models.segmentors.encoder_decoder import postprocess_logits
 from lednet_tpu_torch.models.segmentors.seg_tta import merge_tta_probs
 from test_torch_port_common import REPO, rel_err
+from test_torch_port_common import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures('one_thread')
 
 BRANCH = f'{REPO}/configs/LED_Net/lednet_80k_branch-512x1024.py'
 MERGE_TOL = 1e-6

@@ -32,8 +32,12 @@ and holds them together:
 - ``Runner.val`` of DDRNet-23-slim (cut to a test width) on a fabricated
   Cityscapes tree: aAcc and mIoU within 0.05 points of the JAX Runner's.
 
-torch's CPU autograd runs on one thread here (``one_thread``): it aborts
-the process when it runs multi-threaded after the XLA CPU runtime has run.
+torch runs on one thread in every test here (``one_thread``): its CPU
+autograd aborts the process when it runs multi-threaded after the XLA CPU
+runtime has run, and six workers' threads oversubscribe the cores.  A
+segmentor's JAX ``predict``, which runs once, runs op by op, without
+``jax.jit``: XLA:CPU's whole-graph compile of a full-width model costs more
+CPU time than running it op by op once.
 """
 import jax
 import jax.numpy as jnp
@@ -57,6 +61,9 @@ from lednet_tpu_torch.registry import MODELS
 from test_torch_port_common import (REPO, _fill, _plain, jax_variables,
                                     load_port, nchw, nhwc, random_variables,
                                     rel_err)
+from test_torch_port_common import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures('one_thread')
 
 DDRNET_SLIM = f'{REPO}/configs/ddrnet/ddrnet_23-slim_cityscapes-1024x1024.py'
 DDRNET_23 = f'{REPO}/configs/ddrnet/ddrnet_23_cityscapes-1024x1024.py'
@@ -70,16 +77,6 @@ METRIC_TOL = 0.05          # percentage points, port val against JAX val
 def registered():
     import lednet_tpu
     lednet_tpu.register_all_modules()
-
-
-@pytest.fixture
-def one_thread():
-    saved = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(saved)
 
 
 def _normal(shape, seed, scale=1.0):
@@ -368,11 +365,10 @@ def _segmentor_pair(config, shape, seed):
     jpre = JMODELS.build(dict(jcfg.model.data_preprocessor))
     params, stats = loss_variables(jmodel, (1, 64, 64), seed=seed)
     variables = jax_variables(params, stats)
-    jpredict = jax.jit(lambda v, x: jmodel.apply(v, x, method='predict'))
 
     def jax_logits(imgs):
         x, _, _ = jpre(jnp.asarray(imgs), None, training=False)
-        return np.asarray(jpredict(variables, x))
+        return np.asarray(jmodel.apply(variables, x, method='predict'))
     model = init_model(config, device='cpu')
     load_port(model, params, stats)
     return jax_logits, model
@@ -528,11 +524,13 @@ def test_ddrnet_runner_val_matches_jax(tmp_path, one_thread):
         cfg.val_dataloader.dataset.pipeline[1]['scale'] = (256, 128)
         return cfg
     jrunner = JRunner(config(JConfig), work_dir=str(tmp_path / 'jax'))
-    state = jrunner.init_state(sample_shape=(1, 128, 128, 3))
     params, stats = loss_variables(jrunner.model, (1, 128, 128), seed=42)
     variables = jax_variables(params, stats)
-    jrunner.state = state.replace(params=variables['params'],
-                                  batch_stats=variables['batch_stats'])
+    # the eval step reads only the weights: no jitted init, no optimizer
+    # state to compile
+    jrunner.state = JTrainState(step=jnp.asarray(0, jnp.int32),
+                                params=variables['params'],
+                                batch_stats=variables['batch_stats'], opt_state=())
     want = jrunner.val()
 
     runner = Runner(config(Config), work_dir=str(tmp_path / 'port'),

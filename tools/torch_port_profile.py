@@ -4,16 +4,20 @@
     python3 tools/torch_port_profile.py [--size 1024] [--iters 20] [--config CFG]
 
 Builds the flagship LED-Net (``configs/LED_Net/lednet_80k_cityscapes-1024x1024.py``,
-or the model of ``--config``: DDRNet, BiSeNetV1, PIDNet, STDC, BiSeNetV2 and
-HRNet run kernel A alone and skip the kernel E readings below)
+or the model of ``--config``: DDRNet, BiSeNetV1, PIDNet, STDC, BiSeNetV2,
+HRNet and SegNeXt run kernel A alone and skip the kernel E readings below)
 with seeded random weights through ``lednet_tpu_torch.apis.init_model``, and
 profiles bs=1 forwards (preprocess + ``predict``) with ``torch.profiler``, once
 through the CUDA kernels and once through the plain module forms.  Prints,
 per path: wall time per forward (host clock around synchronized forwards),
 device busy time per forward (the sum of the device ops' self time), the
 idle share 1 - busy/wall, the number of device ops per forward, the device
-time per forward by kind (``by_kind``: convolutions, BatchNorm, the rest;
-by the device kernels' names, :func:`kind_of`), the device
+time per forward by kind (``by_kind``: convolutions, BatchNorm, the other
+norms (GroupNorm, LayerNorm), the rest; by the device kernels' names,
+:func:`kind_of`), the device time per forward of the Hamburger head's NMF
+(``nmf_ms``: the device time of the kernels launched inside a profiler
+range that this script puts around each call of ``ham_head._nmf``; 0 for
+other models and in a replayed graph, which runs no host code), the device
 time and launches per forward of each of the port's CUDA kernels by op
 (kernel D's reduce and fused launches; kernel E, which no model calls,
 reads 0), the top device kernels by time and the top aten ops by the device
@@ -90,14 +94,21 @@ def _device_us(evt):
 
 
 def kind_of(kernel: str) -> str:
-    """'conv', 'batch_norm' or 'rest' by a device kernel's name: cuDNN's and
-    PyTorch's own convolution kernels (implicit GEMMs, direct and grouped
-    convolutions, forward and backward), BatchNorm's (cuDNN's ``bn_fw`` /
-    ``bn_bw``, PyTorch's ``batch_norm``); layout transposes, resizes, pools, elementwise ops and
-    the port's kernels are the rest."""
+    """'conv', 'batch_norm', 'norm' or 'rest' by a device kernel's name:
+    cuDNN's and PyTorch's own convolution kernels (implicit GEMMs, direct
+    and grouped convolutions, forward and backward; the NMF's batched
+    matmuls too), BatchNorm's (cuDNN's ``bn_fw`` / ``bn_bw``, PyTorch's
+    ``batch_norm``), GroupNorm's and LayerNorm's (PyTorch's
+    ``group_norm`` / ``GroupNorm`` / ``layer_norm`` / ``LayerNorm``
+    kernels and their moments); layout transposes, resizes, pools,
+    elementwise ops and the port's kernels are the rest."""
     name = kernel.lower()
     if any(k in name for k in ('bn_fw', 'bn_bw', 'batch_norm', 'batchnorm')):
         return 'batch_norm'
+    if any(k in name for k in ('group_norm', 'groupnorm', 'layer_norm',
+                               'layernorm', 'rowwisemoments',
+                               'computefusedparams')):
+        return 'norm'
     if any(k in name for k in ('conv', 'xmma', 'gemm', 'winograd', 'cutlass')):
         return 'conv'
     return 'rest'
@@ -124,7 +135,8 @@ def train_step(model):
     state = create_train_state(model, opt, sched)
     imgs, lbl = chip_smoke.train_batch(
         np.random.default_rng(0), cfg.train_dataloader.batch_size,
-        tuple(cfg.model.data_preprocessor.size), chip_smoke.edge_width(cfg))
+        tuple(cfg.model.data_preprocessor.size), chip_smoke.edge_width(cfg),
+        cfg.model.decode_head.num_classes)
     imgs, lbl = imgs.cuda(), chip_smoke.to_device(lbl, 'cuda')
 
     def run():
@@ -157,8 +169,10 @@ def profile_path(forward, impl, iters):
             torch.cuda.synchronize()
     events = prof.key_averages()
     # device-side entries (kernels, memcpy/memset) carry the device time
-    # once; the host-side aten ops that launched them repeat it
-    device = [e for e in events if e.device_type == DeviceType.CUDA]
+    # once; the host-side aten ops that launched them repeat it.  The NMF's
+    # range shows on the device too, as a span: not a device op
+    device = [e for e in events if e.device_type == DeviceType.CUDA
+              and e.key != 'nmf']
     busy_ms = sum(_self_device_us(e) for e in device) / 1e3 / iters
     n_ops = sum(e.count for e in device) / iters
     aten = [e for e in events if e.device_type == DeviceType.CPU
@@ -180,12 +194,14 @@ def profile_path(forward, impl, iters):
         return [dict(name=e.key[:90], ms_per_forward=key(e) / 1e3 / iters,
                      calls_per_forward=e.count / iters)
                 for e in sorted(evts, key=key, reverse=True)[:15]]
-    by_kind = {'conv': 0.0, 'batch_norm': 0.0, 'rest': 0.0}
+    by_kind = {'conv': 0.0, 'batch_norm': 0.0, 'norm': 0.0, 'rest': 0.0}
     for e in device:
         by_kind[kind_of(e.key)] += _self_device_us(e) / 1e3 / iters
+    nmf_ms = sum(_device_us(e) for e in events if e.key == 'nmf' and
+                 e.device_type == DeviceType.CPU) / 1e3 / iters
     return dict(impl=impl, wall_ms=wall_ms, device_busy_ms=busy_ms,
                 idle_share=max(0.0, 1.0 - busy_ms / wall_ms),
-                device_ops_per_forward=n_ops, by_kind=by_kind,
+                device_ops_per_forward=n_ops, by_kind=by_kind, nmf_ms=nmf_ms,
                 port_kernels=port,
                 top_kernels=rows(device, _self_device_us),
                 top_aten_ops=rows(aten, _device_us),
@@ -455,6 +471,13 @@ def main() -> int:
                                                          args.val)
         print(json.dumps(report), flush=True)
         return 0
+    from lednet_tpu_torch.models.decode_heads import ham_head
+    nmf = ham_head._nmf
+
+    def ranged_nmf(*a, **kw):
+        with torch.profiler.record_function('nmf'):
+            return nmf(*a, **kw)
+    ham_head._nmf = ranged_nmf
     paths = [('cuda', eager_forward(model, x, 'cuda')),
              ('plain', eager_forward(model, x, 'plain'))]
     if args.train:
@@ -471,7 +494,8 @@ def main() -> int:
         print(f"[{impl}] wall {r['wall_ms']:.3f} ms/forward, device busy "
               f"{r['device_busy_ms']:.3f} ms, idle share {r['idle_share']:.3f}, "
               f"{r['device_ops_per_forward']:.0f} device ops/forward; by kind "
-              + ', '.join(f'{k} {ms:.3f} ms' for k, ms in r['by_kind'].items()),
+              + ', '.join(f'{k} {ms:.3f} ms' for k, ms in r['by_kind'].items())
+              + f"; NMF {r['nmf_ms']:.3f} ms",
               flush=True)
         print('  port_kernels:', flush=True)
         for op, k in r['port_kernels'].items():

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """The zoo phases of ``chip_smoke.py`` alone, on one NVIDIA GPU.
 
-    python3 tools/torch_port_zoo_smoke.py [--phase 10 | 11 | 12 | 10 11 12]
+    python3 tools/torch_port_zoo_smoke.py [--phase 10 | 11 | 12 | 13 | 10 11 12 13]
 
 Prints the card's name and power limit, builds the kernels, fabricates the
 zoo's Cityscapes tree (``chip_smoke.zoo_tree``) and runs
@@ -19,7 +19,11 @@ phase asked for (default 10):
   HRNet configs, then as 10 of BiSeNetV2 (its ``-ohem-`` config) and
   HRNet-W18 (HRNet-W18-Small and W48 once), the ``-amp-`` config's
   bfloat16 step beside its float32 one (``chip_smoke.bf16_step``), then
-  the ``-amp-`` config and HRNet-W18 through the CLIs.
+  the ``-amp-`` config and HRNet-W18 through the CLIs;
+- 13: ``init_model`` on the card of the 4 SegNeXt configs, then as 10 of
+  SegNeXt-T (S, B and L once; the card's step against the CPU's past the
+  warm-up), then T through the CLIs on a fabricated ADE20K tree
+  (``chip_smoke.segnext``).
 
 Exits non-zero if a phase fails or there is no GPU.
 """
@@ -35,7 +39,7 @@ sys.path.insert(0, REPO)
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument('--phase', nargs='+', choices=('10', '11', '12'),
+    ap.add_argument('--phase', nargs='+', choices=('10', '11', '12', '13'),
                     default=['10'])
     args = ap.parse_args()
     import torch
@@ -64,7 +68,8 @@ def main() -> int:
               '11': ('11 pidnet stdc', zoo(chip_smoke.PID_STDC,
                                            chip_smoke.PID_STDC_WIDE)),
               '12': ('12 bisenetv2 hrnet',
-                     lambda tree: chip_smoke.bise_hrnet(card, tree))}
+                     lambda tree: chip_smoke.bise_hrnet(card, tree)),
+              '13': ('13 segnext', lambda tree: chip_smoke.segnext(card, tree))}
     try:
         with chip_smoke.zoo_tree() as tree:
             for key in args.phase:
