@@ -191,6 +191,31 @@ printing one flushed line with its seconds:
    ``drop_path_rate`` 0 (float64; float32 with ReLU signs pinned); T through
    the train and test CLIs on a fabricated ADE20K tree (``ADE_TREE_*``
    frames of two aspects, so val runs two padded shapes).
+14. slide: ``init_model`` on the card of the 13 configs that set
+   ``test_cfg.mode='slide'`` (``SLIDE_CONFIGS``: UNet-S5-D16 on DRIVE,
+   HRNet-W18/W18-Small/W48 on Pascal Context and Context-59, unchanged)
+   with their parameter counts; phase 10's checks of UNet-S5-D16 at full
+   width through ``inference_model`` on 2 seeded 584x565 frames (padded to
+   608x576: 196 crops of 64x64 in one batched forward), in slide mode: A
+   exact at float32 output, A once per slide forward (on the whole padded
+   image, before the crops) and B-E never on the device, the kernel path
+   and TF32 defaults against the module forms, the replayed graph (crop
+   gather, batched forward and every accumulate) against eager, both timed
+   with their peak memory; its train step at the config's batch (4 x
+   64x64) and the card's step against the CPU's at 4 x 64x64 (float64;
+   float32 with ReLU signs and max pool choices pinned); HRNet-W18 on
+   Pascal Context-59: one replayed slide forward on a 500x500 frame (2 x 2
+   crops of 480) against eager, its train step at 4 x 480x480, and
+   ``inference_model`` on a 500x375 photo raising as the JAX package does
+   (resized to 390x520, padded to 416 rows < the 480 crop); UNet through
+   the train and test CLIs on a fabricated DRIVE tree (``DRIVE_TREE_*``
+   frames of 584x565), the test CLI with ``--tta`` (the ``tta_pipeline``
+   of ``configs/_base_/datasets/drive.py``, passed as a cfg option: the
+   UNet config has none), mDice printed; HRNet-W18 on
+   Pascal Context-59 through the train and test CLIs on a fabricated
+   Pascal Context tree (``PASCAL_TREE_*`` JPEGs of 500x375 and 375x500; no
+   ``--tta``: its 0.5 view is smaller than the crop and raises, as in the
+   JAX package).
 
 It prints the card line and a ``{"kernels": [...]}`` line (``launches``:
 the wrappers' count in phase 4; ``device_launches``: the CUDA launches the
@@ -205,7 +230,8 @@ its plain version over phase 9's shapes; ``zoo_launches``,
 11; ``bise_hrnet_launches``, ``bise_hrnet_device_launches``,
 ``bise_hrnet_max_abs_err``: the same of phase 12; ``segnext_launches``,
 ``segnext_device_launches``, ``segnext_max_abs_err``: the same of phase
-13; E's row also has
+13; ``slide_launches``, ``slide_device_launches``, ``slide_max_abs_err``:
+the same of phase 14; E's row also has
 ``device_ms`` and ``cudnn_composition_ms`` per call at the flagship set,
 and ``val_ms``, ``val_plain_ms``, ``val_bound_ms``, ``val_device_ms`` and
 ``val_cudnn_composition_ms`` at the val set, all measured in this run),
@@ -283,6 +309,18 @@ SEGNEXT_CONFIGS = ('configs/segnext/*.py',)
 SEGNEXT_START = 2000        # a state step past the LinearLR warm-up (1500)
 ADE_TREE_TRAIN, ADE_TREE_VAL = 6, 2
 ADE_FRAMES_HW = ((480, 640), (720, 480))      # two aspects, as ADE20K's vary
+# phase 14: slide inference: UNet-S5-D16 on DRIVE in full; HRNet-W18 on
+# Pascal Context-59 once (a slide forward and the entry points)
+SLIDE = (('UNet-S5-D16', 'configs/unet/fcn_unet_s5-d16_drive-64x64.py'),)
+PASCAL_HR18 = ('HRNet-W18 PC-59',
+               'configs/hrnet/fcn_hr18_4xb4-40k_pascal-context-59-480x480.py')
+SLIDE_CONFIGS = ('configs/unet/*.py', 'configs/hrnet/*pascal-context*.py')
+SLIDE_CHECK = (4, 64)               # the card's step against the CPU's
+DRIVE_FRAME_HW = (584, 565)         # a DRIVE fundus frame
+PASCAL_SQUARE_HW = (500, 500)       # 2 x 2 crops of 480 at stride 320
+PASCAL_FRAME_HW = (375, 500)        # a 500x375 Pascal Context photo
+DRIVE_TREE_TRAIN, DRIVE_TREE_VAL = 4, 2
+PASCAL_TREE_TRAIN, PASCAL_TREE_VAL = 8, 2
 BF16_U = 2.0 ** -8     # bfloat16's unit roundoff: the amp loss's bound, relative
 CE_LOSSES = [dict(type='CrossEntropyLoss', loss_weight=1.0),
              dict(type='CrossEntropyLoss', loss_weight=0.4)]
@@ -1459,13 +1497,16 @@ def without_dropout(cfg):
     ``drop_path_rate`` 0 where it has stochastic depth (two RNG streams
     cannot drop the same units or samples), and a note saying so ('' when
     none had any)."""
-    heads = [cfg.model.decode_head] + list(cfg.model.get('auxiliary_head') or [])
+    aux = cfg.model.get('auxiliary_head') or []
+    one_aux = not isinstance(aux, (list, tuple))      # a head, not a list
+    heads = [cfg.model.decode_head] + ([aux] if one_aux else list(aux))
     extra, notes = {}, []
     if any(h.get('dropout_ratio', 0.1) for h in heads):
         extra['model.decode_head.dropout_ratio'] = 0.0
-        if cfg.model.get('auxiliary_head'):
-            extra['model.auxiliary_head'] = [dict(h, dropout_ratio=0.0)
-                                             for h in cfg.model.auxiliary_head]
+        if aux:
+            extra['model.auxiliary_head'] = (
+                dict(aux, dropout_ratio=0.0) if one_aux else
+                [dict(h, dropout_ratio=0.0) for h in aux])
         notes.append('dropout 0 in every head')
     if cfg.model.backbone.get('drop_path_rate'):
         extra['model.backbone.drop_path_rate'] = 0.0
@@ -1474,26 +1515,107 @@ def without_dropout(cfg):
                    if notes else '')
 
 
-def zoo_models(card, models=ZOO, wide=ZOO_WIDE):
-    """Phases 10-13, inference and training of ``models`` at their
+def once(card, label, config, x8, gen):
+    """One forward of ``config``'s model (seeded weights, non-trivial
+    BatchNorm stats) on the uint8 images ``x8`` in the mode of its
+    ``test_cfg``: the eval step's replayed graph against the eager kernel
+    path (``check_logits``), each timed once."""
+    import torch
+    from lednet_tpu_torch.apis import init_model
+    from lednet_tpu_torch.engine import make_eval_step
+    model = init_model(config, device='cuda', generator=gen)
+    randomize_norms(model, gen)
+    mode = model.test_cfg.get('mode', 'whole')
+    predict = model.predict_slide if mode == 'slide' else model.predict
+    step = make_eval_step(model, model.data_preprocessor, mode)
+
+    def eager():
+        return predict(model.data_preprocessor(x8)[0])
+    with torch.inference_mode():
+        check_logits(f'{label} replay vs eager kernel path ({mode})', step(x8),
+                     eager())
+        replay_ms = cuda_ms(lambda: step(x8), reps=1, warmup=0)
+        eager_ms = cuda_ms(eager, reps=1, warmup=0)
+    say(f'  {label} forward {"x".join(str(n) for n in x8.shape[:3])} '
+        f'({mode}), one call each: replayed graph {replay_ms:.3f} ms, eager '
+        f'{eager_ms:.3f} ms; on {card}')
+    del model, step
+    torch.cuda.empty_cache()
+
+
+def timed_train(card, label, cfg, rng, gen):
+    """The train step of ``cfg`` (a seeded model) at the config's batch and
+    crop on the card, TF32 off: one warm-up step and TRAIN_STEPS timed
+    (CUDA events; every log finite), and peak memory."""
+    import torch
+    from lednet_tpu_torch.apis import init_model
+    from lednet_tpu_torch.engine import (build_optimizer, create_train_state,
+                                         make_train_step)
+    batch = cfg.train_dataloader.batch_size
+    crop = tuple(cfg.model.data_preprocessor.size)
+    edges = edge_width(cfg)
+    train_model = init_model(cfg, device='cuda', generator=gen)
+    opt, sched = build_optimizer(train_model, cfg.optim_wrapper,
+                                 cfg.param_scheduler)
+    train = make_train_step(train_model, opt, train_model.data_preprocessor)
+    state = create_train_state(train_model, opt, sched)
+    t_imgs, t_lbl = train_batch(rng, batch, crop, edges,
+                                cfg.model.decode_head.num_classes)
+    t_imgs, t_lbl = t_imgs.cuda(), to_device(t_lbl, 'cuda')
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    times = []
+    for i in range(1 + TRAIN_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, logs = train(state, t_imgs, t_lbl)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+        vals = {k: v.item() for k, v in logs.items()}
+        if not all(np.isfinite(v) for v in vals.values()):
+            raise AssertionError(f'{label} step {state.step}: {vals}')
+    say(f'  {label} step {state.step} logs: ' + ', '.join(
+        f'{k} {v:.5f}' for k, v in vals.items()))
+    ms = sum(times[1:]) / TRAIN_STEPS
+    say(f'  {label} train step, bs {batch} at {crop[0]}x{crop[1]}'
+        f'{" with edge maps" if edges else ""} (TF32 off): '
+        f'{ms:.3f} ms/step ({batch * 1000 / ms:.2f} img/s) over '
+        f'{TRAIN_STEPS} steps after a warm-up; on {card}')
+    say(f'  {label} train step peak memory allocated: '
+        f'{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, of it '
+        f'{held / 2**30:.3f} GiB allocated before the first step (this '
+        f'model, its batch and what earlier phases hold); on {card}')
+    del train_model, opt, train, state, t_imgs, t_lbl, logs
+    torch.cuda.empty_cache()
+
+
+def zoo_models(card, models=ZOO, wide=ZOO_WIDE, frame_hw=(SIZE, SIZE),
+               check=(2, 256)):
+    """Phases 10-14, inference and training of ``models`` at their
     configs' widths (seeded weights, non-trivial BatchNorm stats; phase 10:
     DDRNet-23-slim and BiSeNetV1 R-18, phase 11: PIDNet-S and STDC1, phase
-    12: BiSeNetV2 and HRNet-W18, phase 13: SegNeXt-T), and
-    one forward of each of ``wide``; returns the kernels' wrapper launches
-    and device launches of their main path and kernel A's largest error at
-    float32 output."""
+    12: BiSeNetV2 and HRNet-W18, phase 13: SegNeXt-T, phase 14: UNet-S5-D16
+    in slide mode), and one forward of each of ``wide``, on frames of
+    ``frame_hw`` (padded to a multiple of 32 where ``inference_model`` pads
+    them), in the mode of each model's ``test_cfg`` (whole or slide); the
+    card's train step against the CPU's at ``check`` (batch, size); returns
+    the kernels' wrapper launches and device launches of their main path and
+    kernel A's largest error at float32 output."""
     import torch
     from lednet_tpu_torch.apis import inference_model, init_model
     from lednet_tpu_torch.config import Config
-    from lednet_tpu_torch.engine import (build_optimizer, create_train_state,
-                                         make_eval_step, make_train_step)
+    from lednet_tpu_torch.engine import make_eval_step
     from lednet_tpu_torch.ops import kernels
 
     gen = torch.Generator().manual_seed(SEED + 10)
     rng = np.random.default_rng(SEED + 10)
-    imgs = [rng.integers(0, 256, (SIZE, SIZE, 3), dtype=np.uint8)
+    imgs = [rng.integers(0, 256, frame_hw + (3,), dtype=np.uint8)
             for _ in range(ZOO_IMAGES)]
-    x_dev = torch.from_numpy(imgs[0][None]).cuda()
+    pad = [(0, (-n) % 32) for n in frame_hw]
+    x_dev = torch.from_numpy(np.pad(imgs[0], pad + [(0, 0)])[None]).cuda()
+    shape = 'x'.join(str(n) for n in x_dev.shape[:3])
     x_val = torch.randint(0, 256, VAL_SHAPE + (3,), generator=gen,
                           dtype=torch.uint8).cuda()
     launches, device, a_errs = {}, {}, []
@@ -1502,6 +1624,8 @@ def zoo_models(card, models=ZOO, wide=ZOO_WIDE):
         randomize_norms(model, gen)
         classes = model.cfg.model.decode_head.num_classes
         pre = model.data_preprocessor
+        mode = model.test_cfg.get('mode', 'whole')
+        predict = model.predict_slide if mode == 'slide' else model.predict
         if pre.out_dtype != torch.float32:
             raise AssertionError(f'{label}: the preprocessor emits {pre.out_dtype}')
 
@@ -1551,26 +1675,46 @@ def zoo_models(card, models=ZOO, wide=ZOO_WIDE):
                 say(f'  {label} image {i}: {name} vs float32 module forms rel '
                     f'{e:.3e} (tol {TOL_MODEL:g}), argmax agreement '
                     f'{agree:.6f}, max|logit| {np.abs(lb).max():.3f}')
-                if la.shape != (SIZE, SIZE, classes) or not (
+                if la.shape != frame_hw + (classes,) or not (
                         np.isfinite(la).all() and e <= TOL_MODEL
                         and agree >= MIN_ARGMAX_AGREEMENT):
                     raise AssertionError(f'{label} image {i}: {name} disagrees')
 
-        # the eval graph against the eager kernel path, then both timed
-        step = make_eval_step(model, pre)
+        # the eval graph against the eager kernel path, then both timed;
+        # the memory that the first call (warm-up and capture) and an eager
+        # forward take above what was held before them, and the graph's
+        # pool that the step keeps
+        step = make_eval_step(model, pre, mode)
 
         def eager():
             x, _, _ = pre(x_dev, impl='cuda')
-            return model.predict(x, 'cuda')
+            return predict(x, 'cuda')
         with torch.inference_mode():
-            check_logits(f'{label} replay vs eager kernel path', step(x_dev),
-                         eager())
+            mem = {}
+            for name, fn in (('capture', lambda: step(x_dev)), ('eager', eager)):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                held = torch.cuda.memory_allocated()
+                out = fn()
+                torch.cuda.synchronize()
+                mem[name] = (torch.cuda.max_memory_allocated() - held) / 2**30
+                mem[name + ' kept'] = (torch.cuda.memory_allocated() - held) / 2**30
+                if name == 'capture':
+                    replayed = out
+            check_logits(f'{label} replay vs eager kernel path ({mode})',
+                         replayed, out)
+            del replayed, out
             replay_ms = cuda_ms(lambda: step(x_dev), reps=50, warmup=5)
             eager_ms = cuda_ms(eager, reps=50, warmup=5)
-        say(f'  {label} forward 1x{SIZE}x{SIZE}: replayed graph '
+        say(f'  {label} forward {shape} ({mode}): replayed graph '
             f'{replay_ms:.3f} ms ({1000 / replay_ms:.1f} img/s); on {card}')
-        say(f'  {label} forward 1x{SIZE}x{SIZE}: eager kernel path '
+        say(f'  {label} forward {shape} ({mode}): eager kernel path '
             f'{eager_ms:.3f} ms ({1000 / eager_ms:.1f} img/s); on {card}')
+        say(f'  {label} forward {shape} memory above what was held before: '
+            f'peak of the first call (eager warm-up + capture) '
+            f'{mem["capture"]:.3f} GiB, the graph\'s pool and input kept '
+            f'{mem["capture kept"]:.3f} GiB; peak of an eager forward '
+            f'{mem["eager"]:.3f} GiB; on {card}')
         if label == models[0][0]:
             calls = []
             with recording(calls), torch.inference_mode():
@@ -1580,76 +1724,30 @@ def zoo_models(card, models=ZOO, wide=ZOO_WIDE):
                 a_ms = cuda_ms(lambda: op(*args, **dict(kw, impl='cuda')), 20)
                 a_plain = cuda_ms(lambda: op(*args, **dict(kw, impl='plain')), 20)
             bound, by, _ = bounds_ms('normalize_image', args, kw)
-            say(f'  kernel A at float32 output, 1x{SIZE}x{SIZE}: {a_ms:.4f} ms, '
+            say(f'  kernel A at float32 output, {shape}: {a_ms:.4f} ms, '
                 f'plain {a_plain:.4f} ms, bound {bound:.4f} ms ({by}); on {card}')
         del model, step, res, plain, tf32
         torch.cuda.empty_cache()
 
     # the wider variants once each, eager and replayed
     for label, config in wide:
-        model = init_model(config, device='cuda', generator=gen)
-        randomize_norms(model, gen)
-        step = make_eval_step(model, model.data_preprocessor)
-        with torch.inference_mode():
-            x, _, _ = model.data_preprocessor(x_dev)
-            check_logits(f'{label} replay vs eager kernel path', step(x_dev),
-                         model.predict(x))
-            replay_ms = cuda_ms(lambda: step(x_dev), reps=1, warmup=0)
-            eager_ms = cuda_ms(lambda: model.predict(
-                model.data_preprocessor(x_dev)[0]), reps=1, warmup=0)
-        say(f'  {label} forward 1x{SIZE}x{SIZE}, one call each: replayed '
-            f'graph {replay_ms:.3f} ms, eager {eager_ms:.3f} ms; on {card}')
-        del model, step, x
-        torch.cuda.empty_cache()
+        once(card, label, config, x_dev, gen)
 
     # training: the config's batch at its crop size, then the card's step
     # against the CPU's
     for label, config in models:
         cfg = Config.fromfile(config)
-        batch = cfg.train_dataloader.batch_size
-        crop = tuple(cfg.model.data_preprocessor.size)
         edges = edge_width(cfg)
         classes = cfg.model.decode_head.num_classes
-        train_model = init_model(cfg, device='cuda', generator=gen)
-        opt, sched = build_optimizer(train_model, cfg.optim_wrapper,
-                                     cfg.param_scheduler)
-        train = make_train_step(train_model, opt, train_model.data_preprocessor)
-        state = create_train_state(train_model, opt, sched)
-        t_imgs, t_lbl = train_batch(rng, batch, crop, edges, classes)
-        t_imgs, t_lbl = t_imgs.cuda(), to_device(t_lbl, 'cuda')
-        torch.cuda.reset_peak_memory_stats()
-        held = torch.cuda.memory_allocated()
-        times = []
-        for i in range(1 + TRAIN_STEPS):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            state, logs = train(state, t_imgs, t_lbl)
-            end.record()
-            torch.cuda.synchronize()
-            times.append(start.elapsed_time(end))
-            vals = {k: v.item() for k, v in logs.items()}
-            if not all(np.isfinite(v) for v in vals.values()):
-                raise AssertionError(f'{label} step {state.step}: {vals}')
-        say(f'  {label} step {state.step} logs: ' + ', '.join(
-            f'{k} {v:.5f}' for k, v in vals.items()))
-        ms = sum(times[1:]) / TRAIN_STEPS
-        say(f'  {label} train step, bs {batch} at {crop[0]}x{crop[1]}'
-            f'{" with edge maps" if edges else ""} (TF32 off): '
-            f'{ms:.3f} ms/step ({batch * 1000 / ms:.2f} img/s) over '
-            f'{TRAIN_STEPS} steps after a warm-up; on {card}')
-        say(f'  {label} train step peak memory allocated: '
-            f'{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, of it '
-            f'{held / 2**30:.3f} GiB allocated before the first step (this '
-            f'model, its batch and what earlier phases hold); on {card}')
-        del train_model, opt, train, state, t_imgs, t_lbl, logs
-        torch.cuda.empty_cache()
+        timed_train(card, label, cfg, rng, gen)
 
         extra, note = without_dropout(cfg)
-        extra['model.data_preprocessor.size'] = (256, 256)
+        n_check, size = check
+        at = f'{n_check}x{size}x{size}'
+        extra['model.data_preprocessor.size'] = (size, size)
         cfg.merge_from_dict(extra)
-        s_imgs, s_lbl = train_batch(np.random.default_rng(SEED + 11), 2, 256,
-                                    edges, classes)
+        s_imgs, s_lbl = train_batch(np.random.default_rng(SEED + 11), n_check,
+                                    size, edges, classes)
         if start_step(cfg):
             note += f', at state step {start_step(cfg)} (past the warm-up)'
         # float64 holds the step's arithmetic to phase 6's bounds.  A float32
@@ -1673,7 +1771,7 @@ def zoo_models(card, models=ZOO, wide=ZOO_WIDE):
                 runs[dev, dtype, pin] = train_once(cfg, dev, s_imgs, s_lbl,
                                                    SEED + 11, dtype)
         cpu64 = runs['cpu', torch.float64]
-        say(f'  {label} one step, 2x256x256: of {len(kept)} calls that decide '
+        say(f'  {label} one step, {at}: of {len(kept)} calls that decide '
             '(OHEM, ReLU, max pool, boundary gate, pixel sampler), elements '
             'decided otherwise than in the '
             'CPU float64 step: ' + '; '.join(
@@ -1681,13 +1779,13 @@ def zoo_models(card, models=ZOO, wide=ZOO_WIDE):
                     ('the CPU float32', ('cpu', torch.float32, True)),
                     ('the card float64', ('cuda', torch.float64, False)),
                     ('the card float32', ('cuda', torch.float32, False)))))
-        hold_train(f'{label} one step, 2x256x256, float64, the card (PyTorch\'s '
+        hold_train(f'{label} one step, {at}, float64, the card (PyTorch\'s '
                    f'own CUDA convs) vs the CPU{note}',
                    runs['cuda', torch.float64, False], cpu64,
                    ('weights', 'bn_stats'))
         dl, dw, ds, shares = train_distance(runs['cuda', torch.float32, False],
                                             cpu64)
-        say(f'  {label} one step, 2x256x256, the card float32 vs the CPU '
+        say(f'  {label} one step, {at}, the card float32 vs the CPU '
             f'float64, its own decisions (not held): |loss diff| '
             f'{dl:.3e}, max |diff| weights {dw:.3e}, BatchNorm stats {ds:.3e}; '
             'nearest their bound: ' + ', '.join(f'{k} {r:.3f}'
@@ -1700,7 +1798,7 @@ def zoo_models(card, models=ZOO, wide=ZOO_WIDE):
                                      torch.float32)
         finally:
             torch.set_num_threads(threads)
-        hold_float32(f'{label} one step, 2x256x256, decisions pinned{note}',
+        hold_float32(f'{label} one step, {at}, decisions pinned{note}',
                      runs['cuda', torch.float32, True],
                      (runs['cpu', torch.float32, True], cpu_one), cpu64)
     return launches, device, max(a_errs)
@@ -1828,12 +1926,14 @@ def zoo_tree():
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def zoo_entry_points(card, tmp, label, config, tree='cityscapes'):
-    """Phases 10-13, entry points: ``config`` through the train CLI
+def zoo_entry_points(card, tmp, label, config, tree='cityscapes', tta=None):
+    """Phases 10-14, entry points: ``config`` through the train CLI
     (``ZOO_ITERS`` steps, one val at the end) on the tree ``tree`` in
     ``tmp`` (phases 10-12: :func:`zoo_tree`'s Cityscapes tree; phase 13:
-    an ADE20K one), and the test CLI on the last checkpoint, which must
-    equal that val."""
+    an ADE20K one; phase 14: DRIVE and Pascal Context ones), and the test
+    CLI on the last checkpoint, which must equal that val; with ``tta`` (a
+    ``tta_pipeline``) the test CLI runs with ``--tta`` and that pipeline
+    instead, and its metrics must be finite."""
     from lednet_tpu_torch.config import Config
 
     cfg = Config.fromfile(config)
@@ -1868,17 +1968,28 @@ def zoo_entry_points(card, tmp, label, config, tree='cityscapes'):
     say(f'  {label} of it waiting on the loader: {wait_s * 1e3:.1f} ms; '
         f'on {card}')
     t0 = time.perf_counter()
+    if tta is None:
+        lines = run_cli(['tools/torch_port_test.py', config,
+                         os.path.join(work, f'iter_{ZOO_ITERS}.pth'),
+                         '--work-dir', os.path.join(work, 'test'),
+                         '--cfg-options', *options])
+        tested = json.loads(lines[-1])
+        say(f'  {label} test CLI on iter_{ZOO_ITERS}.pth: '
+            f'{time.perf_counter() - t0:.2f} s; {tested} (val at step '
+            f'{ZOO_ITERS}: {vals[ZOO_ITERS]})')
+        if tested != vals[ZOO_ITERS]:
+            raise AssertionError(f'the test CLI does not reproduce the val at '
+                                 f'step {ZOO_ITERS}')
+        return
     lines = run_cli(['tools/torch_port_test.py', config,
-                     os.path.join(work, f'iter_{ZOO_ITERS}.pth'),
-                     '--work-dir', os.path.join(work, 'test'),
-                     '--cfg-options', *options])
+                     os.path.join(work, f'iter_{ZOO_ITERS}.pth'), '--tta',
+                     '--work-dir', os.path.join(work, 'test_tta'),
+                     '--cfg-options', *options, f'tta_pipeline={tta!r}'])
     tested = json.loads(lines[-1])
-    say(f'  {label} test CLI on iter_{ZOO_ITERS}.pth: '
-        f'{time.perf_counter() - t0:.2f} s; {tested} (val at step '
-        f'{ZOO_ITERS}: {vals[ZOO_ITERS]})')
-    if tested != vals[ZOO_ITERS]:
-        raise AssertionError(f'the test CLI does not reproduce the val at '
-                             f'step {ZOO_ITERS}')
+    say(f'  {label} test CLI --tta on iter_{ZOO_ITERS}.pth: '
+        f'{time.perf_counter() - t0:.2f} s; {tested}')
+    if not tested or not all(np.isfinite(v) for v in tested.values()):
+        raise AssertionError(f'test-time augmentation gave {tested}')
 
 
 def segnext(card, tmp):
@@ -1909,6 +2020,82 @@ def segnext(card, tmp):
     say(f'  fabricated {ADE_TREE_TRAIN} train and {ADE_TREE_VAL} val ADE20K '
         f'frames at {ADE_FRAMES_HW} (h, w) in {time.perf_counter() - t0:.2f} s')
     zoo_entry_points(card, tmp, *SEGNEXT[0], tree='ade')
+    return out
+
+
+def slide(card, tmp):
+    """Phase 14: ``init_model`` on the card of every slide config
+    (SLIDE_CONFIGS: UNet-S5-D16 on DRIVE, the twelve HRNet Pascal Context
+    configs) with its parameter count; UNet through :func:`zoo_models` on
+    DRIVE_FRAME_HW frames (584x565 padded to 608x576 by ``inference_model``:
+    196 crops of 64x64 per forward); HRNet-W18 on Pascal Context-59, one
+    replayed slide forward on a PASCAL_SQUARE_HW frame against eager (2 x 2
+    crops of 480), and ``inference_model`` on a PASCAL_FRAME_HW photo, which
+    must raise as the JAX package does (resized to 390x520 and padded to
+    416x544, fewer rows than the crop); then UNet through the CLIs on a
+    fabricated DRIVE tree (the test CLI with ``--tta``, by the
+    ``tta_pipeline`` of ``configs/_base_/datasets/drive.py``, which the UNet
+    config does not carry) and HRNet-W18 on a fabricated Pascal Context
+    tree (no ``--tta``: its 0.5 view is smaller than the crop and raises, as
+    in the JAX package); returns what ``zoo_models`` does."""
+    import glob
+    import torch
+    from lednet_tpu_torch.apis import inference_model, init_model
+    from lednet_tpu_torch.config import Config
+    from lednet_tpu_torch.datasets.synthetic import (make_drive_tree,
+                                                     make_pascal_context_tree)
+    configs = sorted(c for pattern in SLIDE_CONFIGS for c in glob.glob(pattern))
+    t0 = time.perf_counter()
+    sizes = {}
+    for config in configs:
+        model = init_model(config, device='cuda')
+        if model.test_cfg.get('mode') != 'slide':
+            raise AssertionError(f'{config}: test_cfg {model.test_cfg}')
+        sizes[os.path.basename(config)] = sum(p.numel()
+                                              for p in model.parameters())
+        del model
+    say(f'  init_model on the card, {len(configs)} configs in '
+        f'{time.perf_counter() - t0:.2f} s; parameters: ' +
+        ', '.join(f'{k} {v}' for k, v in sizes.items()))
+    if len(configs) != 13:
+        raise AssertionError(f'{len(configs)} slide configs, not 1 + 12')
+    out = zoo_models(card, SLIDE, (), frame_hw=DRIVE_FRAME_HW,
+                     check=SLIDE_CHECK)
+
+    label, config = PASCAL_HR18
+    gen = torch.Generator().manual_seed(SEED + 14)
+    rng = np.random.default_rng(SEED + 14)
+    square = torch.from_numpy(rng.integers(0, 256, (1,) + PASCAL_SQUARE_HW + (3,),
+                                           dtype=np.uint8)).cuda()
+    once(card, label, config, square, gen)
+    timed_train(card, label, Config.fromfile(config), rng, gen)
+    model = init_model(config, device='cuda', generator=gen)
+    photo = rng.integers(0, 256, PASCAL_FRAME_HW + (3,), dtype=np.uint8)
+    try:
+        inference_model(model, photo)
+    except ValueError as e:
+        say(f'  {label} inference_model on a {PASCAL_FRAME_HW[1]}x'
+            f'{PASCAL_FRAME_HW[0]} photo raises, as in the JAX package: {e}')
+    else:
+        raise AssertionError(f'{label}: a crop larger than the padded image '
+                             'did not raise')
+    del model
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    make_drive_tree(os.path.join(tmp, 'drive'), n_train=DRIVE_TREE_TRAIN,
+                    n_val=DRIVE_TREE_VAL, size_hw=DRIVE_FRAME_HW, seed=SEED + 14)
+    make_pascal_context_tree(os.path.join(tmp, 'pascal'),
+                             n_train=PASCAL_TREE_TRAIN, n_val=PASCAL_TREE_VAL,
+                             seed=SEED + 14)
+    say(f'  fabricated {DRIVE_TREE_TRAIN} + {DRIVE_TREE_VAL} DRIVE frames at '
+        f'{DRIVE_FRAME_HW} (h, w) and {PASCAL_TREE_TRAIN} + {PASCAL_TREE_VAL} '
+        f'Pascal Context photos in {time.perf_counter() - t0:.2f} s')
+    # plain lists and dicts, which the CLI's --cfg-options parse back
+    tta = json.loads(json.dumps(
+        Config.fromfile('configs/_base_/datasets/drive.py').tta_pipeline))
+    zoo_entry_points(card, tmp, *SLIDE[0], tree='drive', tta=tta)
+    zoo_entry_points(card, tmp, label, config, tree='pascal')
     return out
 
 
@@ -2305,6 +2492,8 @@ def main() -> int:
             bh_launches, bh_device, bh_a_err = bise_hrnet(card, tree)
         with phase('13 segnext'):
             sn_launches, sn_device, sn_a_err = segnext(card, tree)
+        with phase('14 slide'):
+            sl_launches, sl_device, sl_a_err = slide(card, tree)
     for row in rows:
         row['entry_point_launches'] = entry_launches[row['name']]
         row['entry_point_device_launches'] = entry_device[row['name']]
@@ -2327,6 +2516,10 @@ def main() -> int:
         row['segnext_device_launches'] = sn_device[row['name']]
         row['segnext_max_abs_err'] = (sn_a_err if row['name'] ==
                                       'normalize_image' else None)
+        row['slide_launches'] = sl_launches[row['name']]
+        row['slide_device_launches'] = sl_device[row['name']]
+        row['slide_max_abs_err'] = (sl_a_err if row['name'] ==
+                                    'normalize_image' else None)
 
     say(card)
     say(json.dumps({'kernels': rows}))

@@ -120,8 +120,11 @@ def _cached_eval_step(model: torch.nn.Module) -> EvalStep:
 @torch.inference_mode()
 def inference_model(model: torch.nn.Module, img, batch_size: int = 1,
                     impl: Optional[str] = None) -> Union[dict, Sequence[dict]]:
-    """Whole-image inference on BGR uint8 numpy images (or file paths);
-    returns dict(s) with ``pred_sem_seg`` (H, W) int32, ``seg_logits``
+    """Inference on BGR uint8 numpy images (or file paths), whole-image
+    or, where the model's ``test_cfg`` says ``mode='slide'``, by slide
+    inference on each image padded to a multiple of 32 (a crop larger than
+    that raises ``ValueError``, as the JAX package raises); returns dict(s)
+    with ``pred_sem_seg`` (H, W) int32, ``seg_logits``
     (H, W, C) float32 and ``metainfo``.  Same-shape inputs run in batches of
     ``batch_size``, each through the model's eval step
     (:func:`lednet_tpu_torch.engine.make_eval_step`): on a CUDA model a
@@ -137,6 +140,8 @@ def inference_model(model: torch.nn.Module, img, batch_size: int = 1,
 def _plain_forward(model, inputs):
     if model.data_preprocessor is not None:
         inputs, _, _ = model.data_preprocessor(inputs, impl='plain')
+    if model.test_cfg.get('mode', 'whole') == 'slide':
+        return model.predict_slide(inputs, 'plain')
     return model.predict(inputs, 'plain')
 
 

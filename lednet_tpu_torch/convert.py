@@ -5,6 +5,10 @@ The port's modules carry the flax module names, so the mapping is by path:
 - conv kernels HWIO -> OIHW (``kernel`` -> ``weight``, axes (3, 2, 0, 1)); a
   depthwise kernel (kh, kw, 1, C) becomes (C, 1, kh, kw) the same way, as do
   the raw SESP branch kernels ``spp_dw{i}`` / ``spp_dw_v2_{i}`` (3, 3, 1, n);
+  so does UNet's transposed conv (``deconv``): flax's ``ConvTranspose``
+  kernel with ``transpose_kernel=True`` is (k, k, out, in), the forward
+  conv's, and its transpose is ``ConvTranspose2d``'s (in, out, k, k),
+  unflipped;
 - BatchNorm ``scale``/``bias`` + ``mean``/``var`` -> ``weight``/``bias`` +
   ``running_mean``/``running_var`` (+ ``num_batches_tracked`` = 0); a
   LayerNorm's or GroupNorm's ``scale`` -> ``weight``;
@@ -31,7 +35,9 @@ PIDHead's ``{i,p,d}_head`` / ``{,p_,d_}cls_seg``, STDCNet's
 ``down_norm{i}`` / ``s{i}_b{j}`` (``norm{1,2}``, ``proj_{1,2}``, ``attn``
 with ``conv0`` / ``conv{k}_{1,2}`` / ``conv_mix``, ``fc{1,2}``, ``dw``) /
 ``stage_norm{i}``, and LightHamHead's ``squeeze`` / ``hamburger``
-(``ham_in`` / ``ham_out``) / ``align`` / ``cls``; a norm's module is
+(``ham_in`` / ``ham_out``) / ``align`` / ``cls``, UNet's ``enc{i}`` /
+``up{i}`` / ``dec{i}`` (``conv{j}``; ``InterpConv``'s ``conv``,
+``DeconvModule``'s ``deconv`` / ``norm``); a norm's module is
 ``bn``, ``gn`` or ``ln`` by its type.  Any other automatic flax name (``ClassName_{n}``)
 has no counterpart in the port and raises.
 

@@ -13,7 +13,14 @@ from lednet_tpu_torch.datasets.loader import (DataLoader, DefaultSampler,
                                               DevicePrefetcher,
                                               InfiniteSampler,
                                               build_dataloader, collate)
+from lednet_tpu_torch.datasets.more_datasets import (ChaseDB1Dataset,
+                                                     DRIVEDataset, HRFDataset,
+                                                     PascalContextDataset,
+                                                     PascalContextDataset59,
+                                                     STAREDataset)
 
-__all__ = ['ADE20KDataset', 'BaseSegDataset', 'CityscapesDataset', 'Compose', 'DataLoader',
-           'DefaultSampler', 'DevicePrefetcher', 'InfiniteSampler',
-           'PascalVOCDataset', 'build_dataloader', 'collate']
+__all__ = ['ADE20KDataset', 'BaseSegDataset', 'ChaseDB1Dataset',
+           'CityscapesDataset', 'Compose', 'DRIVEDataset', 'DataLoader',
+           'DefaultSampler', 'DevicePrefetcher', 'HRFDataset',
+           'InfiniteSampler', 'PascalContextDataset', 'PascalContextDataset59',
+           'PascalVOCDataset', 'STAREDataset', 'build_dataloader', 'collate']

@@ -2,7 +2,9 @@
 
 The port's copy of the tables it needs from ``lednet_tpu/datasets/metainfo.py``
 (Cityscapes, fixed by its official label spec, :352-363; ADE20K's 150
-classes, :9 and :34) and of the fork's 2-class VOC task
+classes, :9 and :34; Pascal Context's 60 and 59 classes, :145 and :172), of
+the retina datasets' two classes (``lednet_tpu/datasets/more_datasets.py:134``)
+and of the fork's 2-class VOC task
 (``lednet_tpu/datasets/basesegdataset.py:161``).
 """
 
@@ -83,3 +85,60 @@ ADE20K_PALETTE = [
     [0, 245, 255], [71, 0, 255], [122, 0, 255], [0, 255, 184],
     [0, 92, 255], [184, 255, 0], [0, 133, 255], [255, 214, 0],
     [25, 194, 194], [102, 255, 0], [92, 0, 255]]
+
+PASCAL_CONTEXT_CLASSES = (
+    'background', 'aeroplane', 'bag', 'bed', 'bedclothes', 'bench',
+    'bicycle', 'bird', 'boat', 'book', 'bottle', 'building', 'bus',
+    'cabinet', 'car', 'cat', 'ceiling', 'chair', 'cloth', 'computer',
+    'cow', 'cup', 'curtain', 'dog', 'door', 'fence', 'floor', 'flower',
+    'food', 'grass', 'ground', 'horse', 'keyboard', 'light', 'motorbike',
+    'mountain', 'mouse', 'person', 'plate', 'platform', 'pottedplant',
+    'road', 'rock', 'sheep', 'shelves', 'sidewalk', 'sign', 'sky', 'snow',
+    'sofa', 'table', 'track', 'train', 'tree', 'truck', 'tvmonitor',
+    'wall', 'water', 'window', 'wood',)
+PASCAL_CONTEXT_PALETTE = [
+    [120, 120, 120], [180, 120, 120], [6, 230, 230], [80, 50, 50],
+    [4, 200, 3], [120, 120, 80], [140, 140, 140], [204, 5, 255],
+    [230, 230, 230], [4, 250, 7], [224, 5, 255], [235, 255, 7],
+    [150, 5, 61], [120, 120, 70], [8, 255, 51], [255, 6, 82],
+    [143, 255, 140], [204, 255, 4], [255, 51, 7], [204, 70, 3],
+    [0, 102, 200], [61, 230, 250], [255, 6, 51], [11, 102, 255],
+    [255, 7, 71], [255, 9, 224], [9, 7, 230], [220, 220, 220],
+    [255, 9, 92], [112, 9, 255], [8, 255, 214], [7, 255, 224],
+    [255, 184, 6], [10, 255, 71], [255, 41, 10], [7, 255, 255],
+    [224, 255, 8], [102, 8, 255], [255, 61, 6], [255, 194, 7],
+    [255, 122, 8], [0, 255, 20], [255, 8, 41], [255, 5, 153], [6, 51, 255],
+    [235, 12, 255], [160, 150, 20], [0, 163, 255], [140, 140, 140],
+    [250, 10, 15], [20, 255, 0], [31, 255, 0], [255, 31, 0], [255, 224, 0],
+    [153, 255, 0], [0, 0, 255], [255, 71, 0], [0, 235, 255], [0, 173, 255],
+    [31, 0, 255]]
+
+PASCAL_CONTEXT_59_CLASSES = (
+    'aeroplane', 'bag', 'bed', 'bedclothes', 'bench', 'bicycle', 'bird',
+    'boat', 'book', 'bottle', 'building', 'bus', 'cabinet', 'car', 'cat',
+    'ceiling', 'chair', 'cloth', 'computer', 'cow', 'cup', 'curtain',
+    'dog', 'door', 'fence', 'floor', 'flower', 'food', 'grass', 'ground',
+    'horse', 'keyboard', 'light', 'motorbike', 'mountain', 'mouse',
+    'person', 'plate', 'platform', 'pottedplant', 'road', 'rock', 'sheep',
+    'shelves', 'sidewalk', 'sign', 'sky', 'snow', 'sofa', 'table', 'track',
+    'train', 'tree', 'truck', 'tvmonitor', 'wall', 'water', 'window',
+    'wood',)
+PASCAL_CONTEXT_59_PALETTE = [
+    [180, 120, 120], [6, 230, 230], [80, 50, 50], [4, 200, 3],
+    [120, 120, 80], [140, 140, 140], [204, 5, 255], [230, 230, 230],
+    [4, 250, 7], [224, 5, 255], [235, 255, 7], [150, 5, 61],
+    [120, 120, 70], [8, 255, 51], [255, 6, 82], [143, 255, 140],
+    [204, 255, 4], [255, 51, 7], [204, 70, 3], [0, 102, 200],
+    [61, 230, 250], [255, 6, 51], [11, 102, 255], [255, 7, 71],
+    [255, 9, 224], [9, 7, 230], [220, 220, 220], [255, 9, 92],
+    [112, 9, 255], [8, 255, 214], [7, 255, 224], [255, 184, 6],
+    [10, 255, 71], [255, 41, 10], [7, 255, 255], [224, 255, 8],
+    [102, 8, 255], [255, 61, 6], [255, 194, 7], [255, 122, 8],
+    [0, 255, 20], [255, 8, 41], [255, 5, 153], [6, 51, 255],
+    [235, 12, 255], [160, 150, 20], [0, 163, 255], [140, 140, 140],
+    [250, 10, 15], [20, 255, 0], [31, 255, 0], [255, 31, 0], [255, 224, 0],
+    [153, 255, 0], [0, 0, 255], [255, 71, 0], [0, 235, 255], [0, 173, 255],
+    [31, 0, 255]]
+
+RETINA_CLASSES = ('background', 'vessel')
+RETINA_PALETTE = [[120, 120, 120], [6, 230, 230]]

@@ -27,6 +27,24 @@ the pixels besides), frames in turn at each size of
 Each label map is a grid of blocks of random labels; each image is its
 labels' ADE20K palette colors plus Gaussian noise.
 
+:func:`make_drive_tree`: the layout of the DRIVE config
+(``configs/unet/fcn_unet_s5-d16_drive-64x64.py``):
+``images/{training,validation}/<n>.png`` fundus-like frames (584x565 by
+default, DRIVE's size) and ``annotations/{training,validation}/
+<n>_manual1.png`` gray vessel labels, 0 background and 1 vessel.  Each
+frame is a reddish disc (the field of view) on black with a bright optic
+disc, from which six vessel trees branch out, darker and a few pixels
+wide; no label lies outside the disc.
+
+:func:`make_pascal_context_tree`: the VOC2010 layout of the Pascal Context
+configs (``configs/_base_/datasets/pascal_context{,_59}.py``):
+``JPEGImages/<name>.jpg`` baseline JPEGs written with the port's encoder, in
+turn landscape 500x375 and portrait 375x500, ``SegmentationClassContext/
+<name>.png`` gray labels 0..59 (0 the background, which the 59-class set
+ignores) and the ``ImageSets/SegmentationContext/{train,val}.txt`` lists.
+Each label map is a grid of blocks of random labels; each image is its
+labels' Pascal Context palette colors plus Gaussian noise.
+
 Everything follows from ``seed``.
 """
 from __future__ import annotations
@@ -40,7 +58,8 @@ import numpy as np
 from lednet_tpu_torch.datasets import imageio
 from lednet_tpu_torch.datasets.metainfo import (ADE20K_PALETTE,
                                                 APPLE_BRANCH_PALETTE,
-                                                CITYSCAPES_PALETTE)
+                                                CITYSCAPES_PALETTE,
+                                                PASCAL_CONTEXT_PALETTE)
 
 
 def fake_frame(rng: np.random.Generator, size_hw: Tuple[int, int],
@@ -196,4 +215,84 @@ def make_ade20k_tree(root: str, n_train: int = 8, n_val: int = 4,
             imageio.imwrite(osp.join(root, 'images', split, name + '.jpg'), img)
             imageio.imwrite(osp.join(root, 'annotations', split, name + '.png'),
                             labels)
+    return root
+
+
+def fundus_frame(rng: np.random.Generator, size_hw: Tuple[int, int]
+                 ) -> Tuple[np.ndarray, np.ndarray]:
+    """(BGR uint8 image, uint8 labels: 0 background, 1 vessel) of
+    ``size_hw``: six vessel trees from the optic disc, each splitting in
+    two three times, thinner at every split, inside a circular field of
+    view, with Gaussian noise of std 8."""
+    h, w = size_hw
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    cy, cx, radius = (h - 1) / 2.0, (w - 1) / 2.0, 0.47 * min(h, w)
+    fov = (yy - cy) ** 2 + (xx - cx) ** 2 <= radius * radius
+    disc = (cy + rng.uniform(-0.1, 0.1) * h,
+            cx + rng.choice([-1.0, 1.0]) * rng.uniform(0.2, 0.3) * w)
+    labels = np.zeros((h, w), np.uint8)
+    scale = min(h, w)
+    stack = [(disc, angle, 0.3 * scale, max(scale / 150.0, 1.5), 0)
+             for angle in rng.uniform(0, 2 * np.pi, 6)]
+    while stack:
+        start, angle, length, width, level = stack.pop()
+        end = (start[0] + length * np.sin(angle), start[1] + length * np.cos(angle))
+        _stroke(labels, start, end, width)
+        if level < 3:
+            for side in (-1.0, 1.0):
+                stack.append((end, angle + side * rng.uniform(0.3, 0.8),
+                              length * rng.uniform(0.5, 0.8),
+                              max(width * 0.7, 1.0), level + 1))
+    labels[~fov] = 0
+    shade = 1.0 - 0.3 * np.hypot(yy - cy, xx - cx) / radius
+    img = np.array([40, 80, 170], np.float32) * shade[..., None]
+    img[labels == 1] = np.array([30, 45, 110], np.float32) + rng.normal(0, 5, 3)
+    bright = (yy - disc[0]) ** 2 + (xx - disc[1]) ** 2 <= (0.07 * scale) ** 2
+    img[bright & (labels == 0)] = (150, 200, 240)
+    img = img + rng.normal(0.0, 8.0, (h, w, 3)).astype(np.float32)
+    img[~fov] = 0
+    return np.clip(img, 0, 255).astype(np.uint8), labels
+
+
+def make_drive_tree(root: str, n_train: int = 4, n_val: int = 2,
+                    size_hw: Tuple[int, int] = (584, 565), seed: int = 0) -> str:
+    """Write the DRIVE tree under ``root`` (PNG; training frames numbered
+    from 21, validation frames from 1, as DRIVE's are); returns ``root``."""
+    rng = np.random.default_rng(seed)
+    for split, n, first in (('training', n_train, 21), ('validation', n_val, 1)):
+        for sub in ('images', 'annotations'):
+            os.makedirs(osp.join(root, sub, split), exist_ok=True)
+        for i in range(n):
+            name = f'{first + i:02d}'
+            img, labels = fundus_frame(rng, size_hw)
+            imageio.imwrite(osp.join(root, 'images', split, name + '.png'), img)
+            imageio.imwrite(osp.join(root, 'annotations', split,
+                                     name + '_manual1.png'), labels)
+    return root
+
+
+def make_pascal_context_tree(root: str, n_train: int = 4, n_val: int = 2,
+                             sizes_hw: Sequence[Tuple[int, int]] = ((375, 500),
+                                                                    (500, 375)),
+                             seed: int = 0) -> str:
+    """Write the Pascal Context tree under ``root`` (JPEG quality 95, 4:2:0;
+    frame i of each split has size ``sizes_hw[i % n]``); returns ``root``."""
+    rng = np.random.default_rng(seed)
+    for sub in ('JPEGImages', 'SegmentationClassContext',
+                'ImageSets/SegmentationContext'):
+        os.makedirs(osp.join(root, sub), exist_ok=True)
+    for split, n, year in (('train', n_train, 2008), ('val', n_val, 2009)):
+        names = []
+        for i in range(n):
+            name = f'{year}_{i:06d}'
+            img, labels = fake_frame(rng, sizes_hw[i % len(sizes_hw)],
+                                     grid=(6, 8), ignored=0.0,
+                                     palette=PASCAL_CONTEXT_PALETTE)
+            imageio.imwrite(osp.join(root, 'JPEGImages', name + '.jpg'), img)
+            imageio.imwrite(osp.join(root, 'SegmentationClassContext',
+                                     name + '.png'), labels)
+            names.append(name)
+        with open(osp.join(root, 'ImageSets/SegmentationContext', f'{split}.txt'),
+                  'w', encoding='utf-8') as f:
+            f.write(''.join(n + '\n' for n in names))
     return root

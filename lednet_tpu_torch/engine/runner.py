@@ -16,9 +16,11 @@ GPU (or the CPU, ``device='cpu'``):
   sampler starts over, as in the JAX package.
 - ``val`` pads each image to a multiple of ``eval_pad_multiple`` (128),
   stacks same-shape images into chunks of ``val_batch_size`` (8; the last
-  chunk padded with copies of its last image), runs the eval step
+  chunk padded with copies of its last image), runs the eval step in the
+  model's ``test_cfg.mode``, whole or slide
   (:func:`lednet_tpu_torch.engine.make_eval_step`: one CUDA graph per shape
-  on the kernel path, A-D for LED-Net and A for DDRNet and BiSeNetV1),
+  on the kernel path, A-D for LED-Net and A for the zoo; a slide crop
+  larger than the padded image raises, as in the JAX package),
   crops and resizes the logits to each image's ``ori_shape``
   (``postprocess_logits``) and feeds :class:`IoUMetric`.
   A test-time-augmented sample (the ``tta_pipeline``'s ``TestTimeAug``)

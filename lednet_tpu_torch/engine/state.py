@@ -9,9 +9,11 @@ Counterpart of ``lednet_tpu/engine/state.py`` (``TrainState`` :25,
   ``lednet_tpu/models/layers.py:95-123`` reproduces), backward, one
   optimizer update.  The model and optimizer are updated in place; the
   state carries them and the step count.
-- the eval step on a CUDA model is a CUDA graph of preprocess + ``predict``
-  (the kernel path), captured once per input (B, H, W, dtype) after one eager
-  warm-up, and replayed; on a CPU model it runs eagerly.  A graph bakes in
+- the eval step on a CUDA model is a CUDA graph of preprocess +
+  ``predict`` (or, in slide mode, ``predict_slide``: the crop gather, the
+  batched forward and every accumulate) on the kernel path, captured once
+  per input (B, H, W, dtype) after one eager warm-up, and replayed; on a
+  CPU model it runs eagerly.  A graph bakes in
   the model's weights and the operands folded from them, so the step keys
   its graphs on every parameter's and buffer's ``_version`` and storage and
   captures again after an optimizer step or a ``load_state_dict``, as the
@@ -143,16 +145,16 @@ MAX_GRAPHS = 16
 
 
 class EvalStep:
-    """``step(inputs) -> logits``: preprocess + ``model.predict`` in eval
-    mode and full float32 (:func:`float32_math`), (B, H, W, 3) images in,
-    (B, H, W, C) logits out.  See :func:`make_eval_step`."""
+    """``step(inputs) -> logits``: preprocess + ``model.predict`` (mode
+    ``'whole'``) or ``model.predict_slide`` (``'slide'``) in eval mode and
+    full float32 (:func:`float32_math`), (B, H, W, 3) images in, (B, H, W,
+    C) logits out.  See :func:`make_eval_step`."""
 
     def __init__(self, model: nn.Module, preprocessor=None, mode: str = 'whole'):
-        if mode == 'slide':
-            raise NotImplementedError('slide inference is later work in the port')
-        if mode != 'whole':
+        if mode not in ('whole', 'slide'):
             raise ValueError(f'unknown eval mode {mode!r}')
         self.model = model
+        self.mode = mode
         self.preprocessor = preprocessor
         self.captures = 0            # graphs captured so far
         self._graphs: Dict[tuple, tuple] = collections.OrderedDict()
@@ -177,6 +179,8 @@ class EvalStep:
         """The eager forward that a graph captures."""
         if self.preprocessor is not None:
             inputs, _, _ = self.preprocessor(inputs, None, training=False)
+        if self.mode == 'slide':
+            return self.model.predict_slide(inputs)
         return self.model.predict(inputs)
 
     def __call__(self, inputs: torch.Tensor) -> torch.Tensor:
@@ -254,15 +258,17 @@ def make_eval_step(model: nn.Module, preprocessor=None,
     resolution.
 
     On a CUDA model it replays a CUDA graph of preprocess + ``predict``
-    through the kernels, one per input (B, H, W, dtype), captured at the
-    first call of each shape after an eager warm-up and again whenever a
-    parameter or buffer of the model changed (an optimizer step,
-    ``load_state_dict``, ``.to()``); it keeps the graphs of the last
+    (``mode='slide'``: ``predict_slide``, with the model's ``test_cfg``
+    crop and stride) through the kernels, one per input (B, H, W, dtype),
+    captured at the first call of each shape after an eager warm-up and
+    again whenever a parameter or buffer of the model changed (an
+    optimizer step, ``load_state_dict``, ``.to()``); it keeps the graphs
+    of the last
     :data:`MAX_GRAPHS` shapes, in one memory pool, and returns a copy of
     the graph's output.  A step replays one graph at a time: do not call
     one step from two threads at once.
     It never runs eagerly in place of a graph: a failed capture raises.  On
-    a CPU model (``device='cpu'``) it runs eagerly.  ``mode='slide'`` is
-    later work in the port and raises ``NotImplementedError``.
+    a CPU model (``device='cpu'``) it runs eagerly.  Another ``mode``
+    raises ``ValueError``.
     """
     return EvalStep(model, preprocessor, mode)

@@ -2,7 +2,7 @@
 from lednet_tpu_torch.models import data_preprocessor  # noqa: F401
 from lednet_tpu_torch.models.backbones import (bisenetv1, bisenetv2,  # noqa: F401
                                                ddrnet, hrnet, lednet, mscan,
-                                               pidnet, resnet, stdc)
+                                               pidnet, resnet, stdc, unet)
 from lednet_tpu_torch.models.decode_heads import (fcn_head, ham_head,  # noqa: F401
                                                   led_head, pid_head,
                                                   stdc_head)

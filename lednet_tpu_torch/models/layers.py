@@ -306,13 +306,18 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
     GroupNorm and LayerNorm scale 1 / bias 0, BatchNorm running mean 0 /
     var 1, PReLU 0.25, MSCAN's ``layer_scale_{1,2}`` 1e-2,
     relative-position tables normal(0.02) clipped at two standard
-    deviations.  Every parameter is overwritten, so the result depends on
-    ``generator`` alone; a parameter of no known kind raises."""
+    deviations, transposed-conv kernels LeCun normal (variance 1 / fan_in,
+    flax's default for UNet's ``DeconvModule``).  Every parameter is
+    overwritten, so the result depends on ``generator`` alone; a parameter of
+    no known kind raises."""
     done = set()
     for mod in module.modules():
         for name, p in mod.named_parameters(recurse=False):
-            if isinstance(mod, nn.Conv2d) and name == 'bias':
+            if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d)) and name == 'bias':
                 p.zero_()
+            elif isinstance(mod, nn.ConvTranspose2d):     # (in, out, k, k)
+                fan_in = p.shape[1] * p.shape[2] * p.shape[3]
+                _normal_(p, math.sqrt(1.0 / fan_in), generator)
             elif isinstance(mod, (nn.BatchNorm2d, nn.GroupNorm, nn.LayerNorm)):
                 p.fill_(1.0 if name == 'weight' else 0.0)
             elif isinstance(mod, PReLU):

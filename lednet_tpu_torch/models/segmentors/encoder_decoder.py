@@ -1,17 +1,30 @@
-"""EncoderDecoder segmentor (training loss and whole-image inference), NHWC
-at the boundary.
+"""EncoderDecoder segmentor (training loss, whole-image and slide
+inference), NHWC at the boundary.
 
 Counterpart of ``lednet_tpu/models/segmentors/encoder_decoder.py``
-(``extract_feat`` :58, ``loss`` :77, ``predict`` :90, ``postprocess_logits``
-:156, with its flip and single-logit threshold).  ``loss`` and ``predict`` take (B, H, W, 3) images; ``predict``
-returns (B, H, W, C) logits.  Inside, the model runs NCHW (an NHWC view of
-channels-first memory goes in and comes out without a copy).  Slide
-inference, necks and the single-logit binary head are later work.
+(``extract_feat`` :58, ``loss`` :77, ``predict`` :90, ``predict_slide``
+:101, ``_slide_grid`` :139, ``postprocess_logits`` :156, with its flip and
+single-logit threshold).  ``loss``, ``predict`` and ``predict_slide`` take
+(B, H, W, 3) images; the predictions are (B, H, W, C) logits.  Inside, the
+model runs NCHW (an NHWC view of channels-first memory goes in and comes
+out without a copy).
+
+Slide inference, as the JAX package runs it: the crop-origin grid is static
+per input shape (``_slide_grid``, clamped to the image), every crop is cut
+from the preprocessed image and the crops are stacked on the batch axis for
+ONE backbone + decode-head forward; each crop's logits are added into a
+(B, C, H, W) buffer in grid order and the sum is divided by the number of
+crops that covered each pixel (a constant of the shape, made once per
+device).  A crop larger than the image raises, as the JAX package's
+``dynamic_slice`` does.  Necks and the single-logit binary head are later
+work.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+import functools
+from typing import Any, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 
@@ -31,8 +44,6 @@ class EncoderDecoder(nn.Module):
         super().__init__()
         self.train_cfg = dict(train_cfg or {})
         self.test_cfg = dict(test_cfg or {})
-        if self.test_cfg.get('mode', 'whole') != 'whole':
-            raise NotImplementedError('the port runs whole-image inference only')
         self.backbone = MODELS.build(dict(backbone))
         self.decode_head = MODELS.build(dict(decode_head))
         if auxiliary_head is None:
@@ -75,6 +86,76 @@ class EncoderDecoder(nn.Module):
         feats = self.extract_feat(inputs.permute(0, 3, 1, 2), impl)
         logits = self.decode_head(feats, with_aux=False)
         return self.decode_head.predict_by_feat(logits, size).permute(0, 2, 3, 1)
+
+    def predict_slide(self, inputs: torch.Tensor,
+                      impl: Optional[str] = None) -> torch.Tensor:
+        """Slide inference with ``test_cfg``'s ``crop_size`` and ``stride``:
+        (B, H, W, 3) -> (B, H, W, C) logits, the crops run as one batch."""
+        crop = tuple(self.test_cfg['crop_size'])
+        stride = tuple(self.test_cfg['stride'])
+        H, W = inputs.shape[1:3]
+        starts = _slide_grid(H, W, crop, stride)
+        crops = self.slide_crops(inputs.permute(0, 3, 1, 2), starts, crop)
+        feats = self.extract_feat(crops, impl)
+        logits = self.decode_head(feats, with_aux=False)
+        crop_logits = self.decode_head.predict_by_feat(logits, crop)
+        out = self.slide_accumulate(crop_logits, starts, (H, W))
+        return out.permute(0, 2, 3, 1)
+
+    @staticmethod
+    def slide_crops(x: torch.Tensor, starts: List[Tuple[int, int]],
+                    crop: Tuple[int, int]) -> torch.Tensor:
+        """The crops of (B, C, H, W) ``x`` at ``starts``, stacked crop-major:
+        (n_crops * B, C, ch, cw)."""
+        (ch, cw), (H, W) = crop, x.shape[-2:]
+        if ch > H or cw > W:
+            raise ValueError(f'slide crop {ch}x{cw} is larger than the '
+                             f'(padded) image {H}x{W}')
+        return torch.cat([x[:, :, y:y + ch, x0:x0 + cw] for y, x0 in starts], 0)
+
+    @staticmethod
+    def slide_accumulate(crop_logits: torch.Tensor,
+                         starts: List[Tuple[int, int]],
+                         size: Tuple[int, int]) -> torch.Tensor:
+        """(n_crops * B, C, ch, cw) crop logits -> (B, C, H, W): each crop
+        added in grid order, then divided by the visit count."""
+        n = len(starts)
+        ch, cw = crop_logits.shape[-2:]
+        parts = crop_logits.unflatten(0, (n, -1))
+        accum = crop_logits.new_zeros((parts.shape[1], parts.shape[2]) + tuple(size))
+        for i, (y, x) in enumerate(starts):
+            accum[:, :, y:y + ch, x:x + cw] += parts[i]
+        count = _visit_count(tuple(size), (ch, cw), tuple(starts),
+                             crop_logits.dtype, crop_logits.device)
+        return accum / count
+
+
+def _slide_grid(H: int, W: int, crop: Tuple[int, int],
+                stride: Tuple[int, int]) -> List[Tuple[int, int]]:
+    """The static crop origins (y, x), row-major, the last row and column
+    clamped so that their crops end at the image's edge."""
+    ch, cw = crop
+    sh, sw = stride
+    h_grids = max(H - ch + sh - 1, 0) // sh + 1
+    w_grids = max(W - cw + sw - 1, 0) // sw + 1
+    return [(min(i * sh, max(H - ch, 0)), min(j * sw, max(W - cw, 0)))
+            for i in range(h_grids) for j in range(w_grids)]
+
+
+@functools.lru_cache(maxsize=None)
+def _visit_count(size: Tuple[int, int], crop: Tuple[int, int],
+                 starts: Tuple[Tuple[int, int], ...], dtype: torch.dtype,
+                 device: torch.device) -> torch.Tensor:
+    """(H, W) number of crops covering each pixel, on ``device``: small
+    integers, exact in any float type.  Kept, so that a forward after the
+    first copies nothing from the host (a CUDA graph cannot capture a copy
+    from pageable host memory), and never evicted: a captured graph reads
+    it at every replay.  Made outside inference mode."""
+    count = np.zeros(size, np.float32)
+    for y, x in starts:
+        count[y:y + crop[0], x:x + crop[1]] += 1
+    with torch.inference_mode(False):
+        return torch.from_numpy(count).to(device=device, dtype=dtype)
 
 
 def postprocess_logits(logits: torch.Tensor, pad: Tuple[int, int],

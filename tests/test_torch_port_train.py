@@ -498,8 +498,21 @@ def test_eval_step_on_cpu_equals_predict(small_led):
     model.eval()
     np.testing.assert_array_equal(out.numpy(), ref.numpy())
     assert step.captures == 0              # a CPU model runs eagerly
-    with pytest.raises(NotImplementedError):
-        make_eval_step(model, mode='slide')
+    # slide mode runs eagerly too and equals predict_slide: 64x64 crops at
+    # columns 0 and 32
+    saved = model.test_cfg
+    model.test_cfg = dict(mode='slide', crop_size=(64, 64), stride=(42, 42))
+    try:
+        slide = make_eval_step(model, model.data_preprocessor, mode='slide')
+        with torch.no_grad():
+            ref = model.predict_slide(x)
+        out = slide(imgs)
+    finally:
+        model.test_cfg = saved
+    np.testing.assert_array_equal(out.numpy(), ref.numpy())
+    assert out.shape == ref.shape == (2, 64, 96, 3) and slide.captures == 0
+    with pytest.raises(ValueError, match='unknown eval mode'):
+        make_eval_step(model, mode='tiles')
 
 
 def test_eval_step_weights_key_sees_every_change(small_led, one_thread):

@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
 """Where the time of the PyTorch port's forward goes, on one GPU.
 
-    python3 tools/torch_port_profile.py [--size 1024] [--iters 20] [--config CFG]
+    python3 tools/torch_port_profile.py [--size 1024 | --hw H W] [--iters 20] [--config CFG]
 
 Builds the flagship LED-Net (``configs/LED_Net/lednet_80k_cityscapes-1024x1024.py``,
 or the model of ``--config``: DDRNet, BiSeNetV1, PIDNet, STDC, BiSeNetV2,
-HRNet and SegNeXt run kernel A alone and skip the kernel E readings below)
-with seeded random weights through ``lednet_tpu_torch.apis.init_model``, and
-profiles bs=1 forwards (preprocess + ``predict``) with ``torch.profiler``, once
-through the CUDA kernels and once through the plain module forms.  Prints,
+HRNet, SegNeXt and UNet run kernel A alone and skip the kernel E readings
+below) with seeded random weights through ``lednet_tpu_torch.apis.init_model``,
+and profiles bs=1 forwards (preprocess + ``predict``, or ``predict_slide``
+where the config's ``test_cfg`` says slide) of a ``--size`` square or an
+``--hw`` frame (the DRIVE frame as ``inference_model`` pads it: ``--hw 608
+576``) with ``torch.profiler``, once through the CUDA kernels and once
+through the plain module forms.  Prints,
 per path: wall time per forward (host clock around synchronized forwards),
 device busy time per forward (the sum of the device ops' self time), the
 idle share 1 - busy/wall, the number of device ops per forward, the device
@@ -21,8 +24,15 @@ other models and in a replayed graph, which runs no host code), the device
 time and launches per forward of each of the port's CUDA kernels by op
 (kernel D's reduce and fused launches; kernel E, which no model calls,
 reads 0), the top device kernels by time and the top aten ops by the device
-time they launched, and last the whole report as one JSON line.  Needs a
-GPU.
+time they launched, and last the whole report as one JSON line.  In slide
+mode it also reads each part of the slide forward alone, under a profiler
+of its own on the kernel path (``slide_parts``: device launches and
+device ms per forward of the crop gather, ``slide_crops``; the backbone on
+the stacked crops, ``extract_feat``; the decode head with its resize to the
+crop; the accumulate, ``slide_accumulate``: every crop added in grid order,
+then the division by the visit count).  ``--cudnn-benchmark`` lets cuDNN
+time its algorithms for each conv shape (``torch.backends.cudnn.benchmark``)
+before the profiles; the port leaves that flag off.  Needs a GPU.
 
     python3 tools/torch_port_profile.py --graph
 
@@ -115,10 +125,53 @@ def kind_of(kernel: str) -> str:
 
 
 def eager_forward(model, x, impl):
+    predict = (model.predict_slide if model.test_cfg.get('mode') == 'slide'
+               else model.predict)
+
     def forward():
         y, _, _ = model.data_preprocessor(x, impl=impl)
-        return model.predict(y, impl)
+        return predict(y, impl)
     return forward
+
+
+def slide_parts(model, x, iters):
+    """Each part of the slide forward of ``x`` (kernel path) alone, on
+    the inputs the forward gives it, under a profiler of its own:
+    {part: {launches_per_forward, device_ms_per_forward}}, and the crops."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from lednet_tpu_torch.models.segmentors.encoder_decoder import _slide_grid
+    crop = tuple(model.test_cfg['crop_size'])
+    y, _, _ = model.data_preprocessor(x)
+    H, W = y.shape[1:3]
+    starts = _slide_grid(H, W, crop, tuple(model.test_cfg['stride']))
+    crops = model.slide_crops(y.permute(0, 3, 1, 2), starts, crop)
+    feats = model.extract_feat(crops, 'cuda')
+    logits = model.decode_head.predict_by_feat(
+        model.decode_head(feats, with_aux=False), crop)
+    parts = {
+        'gather': lambda: model.slide_crops(y.permute(0, 3, 1, 2), starts, crop),
+        'backbone': lambda: model.extract_feat(crops, 'cuda'),
+        'head': lambda: model.decode_head.predict_by_feat(
+            model.decode_head(feats, with_aux=False), crop),
+        'accumulate': lambda: model.slide_accumulate(logits, starts, (H, W))}
+    out = dict(crops=len(starts))
+    for name, part in parts.items():
+        for _ in range(3):
+            part()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                part()
+            torch.cuda.synchronize()
+        device = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+        out[name] = dict(
+            launches_per_forward=sum(e.count for e in device) / iters,
+            device_ms_per_forward=sum(_self_device_us(e) for e in device)
+            / 1e3 / iters)
+    return out
 
 
 def train_step(model):
@@ -413,6 +466,10 @@ def main() -> int:
     ap.add_argument('--config', default=CONFIG,
                     help='the model to profile (default: the flagship LED-Net)')
     ap.add_argument('--size', type=int, default=1024)
+    ap.add_argument('--hw', type=int, nargs=2, metavar=('H', 'W'),
+                    help='the frame (default: --size x --size)')
+    ap.add_argument('--cudnn-benchmark', action='store_true',
+                    help='let cuDNN time its algorithms per conv shape')
     ap.add_argument('--iters', type=int, default=20)
     ap.add_argument('--graph', action='store_true',
                     help='also profile the replayed CUDA graph of the eval step')
@@ -443,6 +500,7 @@ def main() -> int:
     from lednet_tpu_torch.apis import init_model
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.benchmark = args.cudnn_benchmark
     card = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                            '--format=csv,noheader'], capture_output=True,
                           text=True, timeout=60).stdout.strip()
@@ -450,7 +508,8 @@ def main() -> int:
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     model = init_model(os.path.join(repo, args.config), device='cuda',
                        generator=torch.Generator().manual_seed(0))
-    img = np.random.default_rng(0).integers(0, 256, (1, args.size, args.size, 3),
+    hw = tuple(args.hw or (args.size, args.size))
+    img = np.random.default_rng(0).integers(0, 256, (1,) + hw + (3,),
                                             dtype=np.uint8)
     x = torch.from_numpy(img).cuda()
     if args.sesp_sweep:
@@ -459,7 +518,8 @@ def main() -> int:
         print(json.dumps(dict(card=card, size=args.size, sesp_sweep=sites)),
               flush=True)
         return 0
-    report = dict(card=card, size=args.size, iters=args.iters, paths=[])
+    report = dict(card=card, size=args.size, hw=hw, iters=args.iters,
+                  cudnn_benchmark=args.cudnn_benchmark, paths=[])
     if args.pyramid_sweep:
         with torch.inference_mode():
             report['pyramid_sweep'] = pyramid_sweep(model, x, args.val)
@@ -478,13 +538,15 @@ def main() -> int:
         with torch.profiler.record_function('nmf'):
             return nmf(*a, **kw)
     ham_head._nmf = ranged_nmf
+    slide = model.test_cfg.get('mode') == 'slide'
     paths = [('cuda', eager_forward(model, x, 'cuda')),
              ('plain', eager_forward(model, x, 'plain'))]
     if args.train:
         paths = [('train', train_step(model))]
     if args.graph:
         from lednet_tpu_torch.engine import make_eval_step
-        step = make_eval_step(model, model.data_preprocessor)
+        step = make_eval_step(model, model.data_preprocessor,
+                              'slide' if slide else 'whole')
         paths.append(('graph', lambda: step(x)))
     ops = {}
     for impl, forward in paths:
@@ -507,6 +569,13 @@ def main() -> int:
             for t in r[title]:
                 print(f"    {t['ms_per_forward']:8.4f} ms  x{t['calls_per_forward']:5.1f}  "
                       f"{t['name']}", flush=True)
+    if slide and not args.train:
+        with torch.inference_mode():
+            report['slide_parts'] = parts = slide_parts(model, x, args.iters)
+        print(f"slide forward by part, each alone ({parts['crops']} crops): " +
+              ', '.join(f"{k} {v['device_ms_per_forward']:.4f} ms in "
+                        f"{v['launches_per_forward']:.0f} launches"
+                        for k, v in parts.items() if k != 'crops'), flush=True)
     if args.config == CONFIG and not args.train:
         with torch.inference_mode():
             report['sesp_pyramid'] = pyramid_device_time(model, x, args.iters,

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """The zoo phases of ``chip_smoke.py`` alone, on one NVIDIA GPU.
 
-    python3 tools/torch_port_zoo_smoke.py [--phase 10 | 11 | 12 | 13 | 10 11 12 13]
+    python3 tools/torch_port_zoo_smoke.py [--phase 10 | 11 | 12 | 13 | 14 | 10 11 ...]
 
 Prints the card's name and power limit, builds the kernels, fabricates the
 zoo's Cityscapes tree (``chip_smoke.zoo_tree``) and runs
@@ -23,7 +23,15 @@ phase asked for (default 10):
 - 13: ``init_model`` on the card of the 4 SegNeXt configs, then as 10 of
   SegNeXt-T (S, B and L once; the card's step against the CPU's past the
   warm-up), then T through the CLIs on a fabricated ADE20K tree
-  (``chip_smoke.segnext``).
+  (``chip_smoke.segnext``);
+- 14: slide inference (``chip_smoke.slide``): ``init_model`` on the card
+  of the DRIVE config and the 12 HRNet Pascal Context configs, then as 10
+  of UNet-S5-D16 on a 584x565 DRIVE frame (196 crops of 64x64 per
+  forward; the card's step against the CPU's at 4 x 64x64), HRNet-W18's
+  Pascal Context-59 slide forward once (and ``inference_model`` raising on
+  a 500x375 photo, as in the JAX package), then UNet through the CLIs on a
+  fabricated DRIVE tree (the test CLI with ``--tta``) and HRNet-W18
+  on a fabricated Pascal Context tree.
 
 Exits non-zero if a phase fails or there is no GPU.
 """
@@ -39,7 +47,7 @@ sys.path.insert(0, REPO)
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument('--phase', nargs='+', choices=('10', '11', '12', '13'),
+    ap.add_argument('--phase', nargs='+', choices=('10', '11', '12', '13', '14'),
                     default=['10'])
     args = ap.parse_args()
     import torch
@@ -69,7 +77,8 @@ def main() -> int:
                                            chip_smoke.PID_STDC_WIDE)),
               '12': ('12 bisenetv2 hrnet',
                      lambda tree: chip_smoke.bise_hrnet(card, tree)),
-              '13': ('13 segnext', lambda tree: chip_smoke.segnext(card, tree))}
+              '13': ('13 segnext', lambda tree: chip_smoke.segnext(card, tree)),
+              '14': ('14 slide', lambda tree: chip_smoke.slide(card, tree))}
     try:
         with chip_smoke.zoo_tree() as tree:
             for key in args.phase:
