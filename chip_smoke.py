@@ -153,7 +153,10 @@ printing one flushed line with its seconds:
    RNG streams cannot drop the same units); DDRNet-23-slim through
    ``tools/torch_port_train.py`` (20 steps, one val) on a tree of 6 + 2
    2048x1024 frames, its iteration time and loader wait from the log, and
-   ``tools/torch_port_test.py`` on ``iter_20.pth`` equal to that val;
+   ``tools/torch_port_test.py`` on ``iter_20.pth`` equal to that val (in
+   phases 10-15 each CLI's ``main`` runs in this process, under torch's
+   default TF32 flags, ``call_cli``; phases 8 and 9 run them as
+   subprocesses);
 11. PIDNet and STDC: phase 10's checks of PIDNet-S and STDC1
    (``configs/pidnet/``, ``configs/stdc/``, unchanged) at full width and bs
    1 at 1024x1024 (A exact at float32 output, A once per forward and B-E
@@ -209,13 +212,34 @@ printing one flushed line with its seconds:
    ``inference_model`` on a 500x375 photo raising as the JAX package does
    (resized to 390x520, padded to 416 rows < the 480 crop); UNet through
    the train and test CLIs on a fabricated DRIVE tree (``DRIVE_TREE_*``
-   frames of 584x565), the test CLI with ``--tta`` (the ``tta_pipeline``
-   of ``configs/_base_/datasets/drive.py``, passed as a cfg option: the
-   UNet config has none), mDice printed; HRNet-W18 on
+   frames of 584x565), the test CLI equal to the step-20 val, then once
+   more with ``--tta`` (the ``tta_pipeline`` of
+   ``configs/_base_/datasets/drive.py``, passed as a cfg option: the UNet
+   config has none), mDice printed; HRNet-W18 on
    Pascal Context-59 through the train and test CLIs on a fabricated
    Pascal Context tree (``PASCAL_TREE_*`` JPEGs of 500x375 and 375x500; no
    ``--tta``: its 0.5 view is smaller than the crop and raises, as in the
    JAX package).
+15. datasets: ``init_model`` on the card of the 24 configs that the VOC +
+   SBD aug, COCO-Stuff 164k, iSAID, LoveDA, Potsdam and Vaihingen datasets
+   unblock (``DATASET_CONFIGS``: HRNet-W18/W18-Small/W48 on the first
+   five, BiSeNetV1 R-18/R-50/R-101 on COCO-Stuff, unchanged) with their
+   parameter counts; phase 10's checks of BiSeNetV1 R-50 (a ResNet-50
+   context path, 171 classes) at full width and bs 1 at 1024x1024 (A
+   exact at float32 output, A once per forward and B-E never, the kernel
+   path and TF32 defaults against module forms, replay against eager,
+   both timed), R-101 one replayed forward against eager, R-50's train
+   step at the config's batch (4 x 512x512) and the card's step against
+   the CPU's at 2 x 256x256 (float64; float32 with ReLU signs and max
+   pool choices pinned); then, on fabricated trees (``VOC_TREE_*`` PNGs
+   of 500x375 and 375x500 in the VOC2012 + SBD layout, ``COCO_TREE_*``
+   640x480 JPEGs, ``ISAID_TREE_*`` 896x896 PNG tiles), HRNet-W18 on VOC
+   aug (a ``ConcatDataset`` of the train and aug lists, ``Pad`` to
+   512x512; a 21-class head under the 2-class ``PascalVOCDataset`` meta,
+   as in the JAX package) and BiSeNetV1 R-50 on COCO-Stuff through the
+   train and test CLIs, the test CLI equal to the step-20 val, and
+   HRNet-W18-Small on iSAID (bs 4 of 896x896 crops) through the train
+   CLI with its val, each with its iteration time and loader wait.
 
 It prints the card line and a ``{"kernels": [...]}`` line (``launches``:
 the wrappers' count in phase 4; ``device_launches``: the CUDA launches the
@@ -231,7 +255,8 @@ its plain version over phase 9's shapes; ``zoo_launches``,
 ``bise_hrnet_max_abs_err``: the same of phase 12; ``segnext_launches``,
 ``segnext_device_launches``, ``segnext_max_abs_err``: the same of phase
 13; ``slide_launches``, ``slide_device_launches``, ``slide_max_abs_err``:
-the same of phase 14; E's row also has
+the same of phase 14; ``datasets_launches``, ``datasets_device_launches``,
+``datasets_max_abs_err``: the same of phase 15; E's row also has
 ``device_ms`` and ``cudnn_composition_ms`` per call at the flagship set,
 and ``val_ms``, ``val_plain_ms``, ``val_bound_ms``, ``val_device_ms`` and
 ``val_cudnn_composition_ms`` at the val set, all measured in this run),
@@ -321,6 +346,30 @@ PASCAL_SQUARE_HW = (500, 500)       # 2 x 2 crops of 480 at stride 320
 PASCAL_FRAME_HW = (375, 500)        # a 500x375 Pascal Context photo
 DRIVE_TREE_TRAIN, DRIVE_TREE_VAL = 4, 2
 PASCAL_TREE_TRAIN, PASCAL_TREE_VAL = 8, 2
+# phase 15: the configs that the VOC + SBD aug, COCO-Stuff 164k, iSAID,
+# LoveDA, Potsdam and Vaihingen datasets unblock; BiSeNetV1 R-50 in full
+# (its context path a ResNet-50), R-101 once; three of their data paths
+# through the CLIs
+DATASET_CONFIGS = ('configs/hrnet/*_voc12aug-512x512.py',
+                   'configs/hrnet/*_isaid-896x896.py',
+                   'configs/hrnet/*_loveda-512x512.py',
+                   'configs/hrnet/*_potsdam-512x512.py',
+                   'configs/hrnet/*_vaihingen-512x512.py',
+                   'configs/bisenetv1/*_coco-stuff164k-512x512.py')
+BISENET_R50 = (('BiSeNetV1 R-50', 'configs/bisenetv1/'
+                'bisenetv1_r50-d32_4xb4-160k_coco-stuff164k-512x512.py'),)
+BISENET_R101 = (('BiSeNetV1 R-101', 'configs/bisenetv1/'
+                 'bisenetv1_r101-d32_4xb4-160k_coco-stuff164k-512x512.py'),)
+VOC_HR18 = ('HRNet-W18 VOC aug',
+            'configs/hrnet/fcn_hr18_4xb4-20k_voc12aug-512x512.py')
+ISAID_HR18S = ('HRNet-W18-Small iSAID',
+               'configs/hrnet/fcn_hr18s_4xb4-80k_isaid-896x896.py')
+VOC_TREE_TRAIN, VOC_TREE_AUG, VOC_TREE_VAL = 8, 8, 4
+VOC_FRAMES_HW = ((375, 500), (500, 375))      # VOC's photos, both aspects
+COCO_TREE_TRAIN, COCO_TREE_VAL = 8, 4
+COCO_FRAME_HW = (480, 640)
+ISAID_TREE_TRAIN, ISAID_TREE_VAL = 8, 2
+ISAID_TILE_HW = (896, 896)                    # the converter's patches
 BF16_U = 2.0 ** -8     # bfloat16's unit roundoff: the amp loss's bound, relative
 CE_LOSSES = [dict(type='CrossEntropyLoss', loss_weight=1.0),
              dict(type='CrossEntropyLoss', loss_weight=0.4)]
@@ -444,14 +493,17 @@ def device_trace(counts):
     counts.update(kernels.device_launches(events))
 
 
-def traced_forward(model, x8):
+def traced_forward(model, x8, expected=None):
     """One eager kernel-path forward (preprocess + predict) of the uint8
     images ``x8`` under :func:`device_trace`: (the kernel calls it made, as
     :func:`recording` keeps them; the CUDA launches the trace saw).  A
     forward always launches kernels of its own besides the port's, so an
     EmptyTrace is the profiler's failure: the forward is traced once more
     (seen once in a dozen runs of this script: one session of phase 9 held
-    nothing)."""
+    nothing).  So is a trace that falls short of ``expected`` (the launches
+    a forward must show) in some kernel and over it in none: a session can
+    drop some records (phase 9 once saw 12 of a forward's 22 SESP
+    launches); the caller holds the second trace to ``expected``."""
     import torch
     for attempt in (0, 1):
         calls, counts = [], {}
@@ -459,12 +511,18 @@ def traced_forward(model, x8):
             with recording(calls), torch.inference_mode(), device_trace(counts):
                 x, _, _ = model.data_preprocessor(x8, impl='cuda')
                 model.predict(x, 'cuda')
-            return calls, counts
         except EmptyTrace:
             if attempt:
                 raise
             say('  the device trace recorded no kernel at all; tracing the '
                 'forward again')
+            continue
+        short = expected is not None and counts != expected and all(
+            counts.get(n, 0) <= c for n, c in expected.items())
+        if attempt or not short:
+            return calls, counts
+        say(f'  the device trace saw {counts}, not {expected}; tracing the '
+            'forward again')
 
 
 def pad_trace():
@@ -982,6 +1040,40 @@ def run_cli(args, timeout=600):
     return proc.stdout.splitlines()
 
 
+def call_cli(args):
+    """Run a port CLI's ``main`` on its argv in this process, under torch's
+    default TF32 flags (cuDNN convs TF32, matmuls float32), as a fresh
+    process would run it; returns its stdout lines.  A raise is re-raised
+    with the end of its output.  Phases 10-15 call the CLIs so: a process
+    of its own costs 20-25 s before its first step on this machine (phases
+    8 and 9 still run each CLI as a subprocess)."""
+    import gc
+    import importlib.util
+    import io
+    import torch
+    path = args[0]
+    spec = importlib.util.spec_from_file_location(
+        os.path.splitext(os.path.basename(path))[0], path)
+    cli = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cli)
+    out = io.StringIO()
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with contextlib.redirect_stdout(out):
+            cli.main(list(args[1:]))
+    except Exception as e:
+        raise AssertionError(f'{path} raised {e!r}:\n{out.getvalue()[-2000:]}') from e
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out.getvalue().splitlines()
+
+
 def train_log(lines):
     """{step: (loss, iter_time, data_time)} of the console lines and
     {step: metrics} of the val lines."""
@@ -1035,7 +1127,7 @@ def entry_points(model, card, expected):
         with torch.inference_mode():
             x, _, _ = model.data_preprocessor(x8, impl='cuda')
             model.predict(x, 'cuda')          # warm-up at the new shape
-        calls, per_forward = traced_forward(model, x8)
+        calls, per_forward = traced_forward(model, x8, expected)
         say(f'  CUDA launches of one forward at {VAL_SHAPE} (device trace): '
             f'{per_forward}')
         if per_forward != expected:
@@ -1317,7 +1409,7 @@ def branch_path(card, expected):
             with torch.inference_mode():
                 x, _, _ = kmodel.data_preprocessor(x8, impl='cuda')
                 kmodel.predict(x, 'cuda')          # warm-up at the new shape
-            calls, per_forward = traced_forward(kmodel, x8)
+            calls, per_forward = traced_forward(kmodel, x8, expected)
             if per_forward != expected:
                 raise AssertionError(f'{label} {shape}: the device ran '
                                      f'{per_forward}, not {expected}')
@@ -1593,11 +1685,12 @@ def timed_train(card, label, cfg, rng, gen):
 
 def zoo_models(card, models=ZOO, wide=ZOO_WIDE, frame_hw=(SIZE, SIZE),
                check=(2, 256)):
-    """Phases 10-14, inference and training of ``models`` at their
+    """Phases 10-15, inference and training of ``models`` at their
     configs' widths (seeded weights, non-trivial BatchNorm stats; phase 10:
     DDRNet-23-slim and BiSeNetV1 R-18, phase 11: PIDNet-S and STDC1, phase
     12: BiSeNetV2 and HRNet-W18, phase 13: SegNeXt-T, phase 14: UNet-S5-D16
-    in slide mode), and one forward of each of ``wide``, on frames of
+    in slide mode, phase 15: BiSeNetV1 R-50), and one forward of each of
+    ``wide``, on frames of
     ``frame_hw`` (padded to a multiple of 32 where ``inference_model`` pads
     them), in the mode of each model's ``test_cfg`` (whole or slide); the
     card's train step against the CPU's at ``check`` (batch, size); returns
@@ -1926,25 +2019,46 @@ def zoo_tree():
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def zoo_entry_points(card, tmp, label, config, tree='cityscapes', tta=None):
-    """Phases 10-14, entry points: ``config`` through the train CLI
-    (``ZOO_ITERS`` steps, one val at the end) on the tree ``tree`` in
+def data_root_options(cfg, data):
+    """``--cfg-options`` that point every loader of ``cfg`` at ``data``,
+    through the dataset wrappers: a ``ConcatDataset``'s children go as one
+    list literal (the options take no list index), a ``RepeatDataset``'s
+    inner dataset by its key."""
+    from lednet_tpu_torch.datasets import configure_datasets
+    options = []
+    for key in ('train_dataloader', 'val_dataloader', 'test_dataloader'):
+        ds = cfg[key]['dataset']
+        if 'datasets' in ds:
+            children = json.loads(json.dumps(
+                configure_datasets(ds, data_root=data)['datasets']))
+            options.append(f'{key}.dataset.datasets={children!r}')
+        elif 'dataset' in ds:
+            options.append(f'{key}.dataset.dataset.data_root={data}')
+        else:
+            options.append(f'{key}.dataset.data_root={data}')
+    return options
+
+
+def zoo_entry_points(card, tmp, label, config, tree='cityscapes', tta=None,
+                     test=True):
+    """Phases 10-15, entry points, called in this process (:func:`call_cli`):
+    ``config`` through the train CLI (``ZOO_ITERS`` steps, one val at the
+    end) on the tree ``tree`` in
     ``tmp`` (phases 10-12: :func:`zoo_tree`'s Cityscapes tree; phase 13:
-    an ADE20K one; phase 14: DRIVE and Pascal Context ones), and the test
-    CLI on the last checkpoint, which must equal that val; with ``tta`` (a
-    ``tta_pipeline``) the test CLI runs with ``--tta`` and that pipeline
-    instead, and its metrics must be finite."""
+    an ADE20K one; phase 14: DRIVE and Pascal Context ones; phase 15: VOC
+    aug, COCO-Stuff and iSAID ones), then, with ``test``, the test CLI on
+    the last checkpoint, which must equal that val; with ``tta`` (a
+    ``tta_pipeline``) the test CLI once more with ``--tta`` and that
+    pipeline, whose metrics must be finite."""
     from lednet_tpu_torch.config import Config
 
     cfg = Config.fromfile(config)
     crop = tuple(cfg.model.data_preprocessor.size)
     loader = cfg.train_dataloader
-    data = os.path.join(tmp, tree)
-    options = [f'{k}.dataset.data_root={data}' for k in
-               ('train_dataloader', 'val_dataloader', 'test_dataloader')]
+    options = data_root_options(cfg, os.path.join(tmp, tree))
     work = os.path.join(tmp, 'work_' + label.replace(' ', '_'))
     t0 = time.perf_counter()
-    iters, vals = train_log(run_cli(
+    iters, vals = train_log(call_cli(
         ['tools/torch_port_train.py', config, '--work-dir', work,
          '--cfg-options', *options, f'train_cfg.max_iters={ZOO_ITERS}',
          f'train_cfg.val_interval={ZOO_ITERS}',
@@ -1967,10 +2081,10 @@ def zoo_entry_points(card, tmp, label, config, tree='cityscapes', tta=None):
         f'{it_s * 1e3:.1f} ms; on {card}')
     say(f'  {label} of it waiting on the loader: {wait_s * 1e3:.1f} ms; '
         f'on {card}')
-    t0 = time.perf_counter()
-    if tta is None:
-        lines = run_cli(['tools/torch_port_test.py', config,
-                         os.path.join(work, f'iter_{ZOO_ITERS}.pth'),
+    checkpoint = os.path.join(work, f'iter_{ZOO_ITERS}.pth')
+    if test:
+        t0 = time.perf_counter()
+        lines = call_cli(['tools/torch_port_test.py', config, checkpoint,
                          '--work-dir', os.path.join(work, 'test'),
                          '--cfg-options', *options])
         tested = json.loads(lines[-1])
@@ -1980,16 +2094,16 @@ def zoo_entry_points(card, tmp, label, config, tree='cityscapes', tta=None):
         if tested != vals[ZOO_ITERS]:
             raise AssertionError(f'the test CLI does not reproduce the val at '
                                  f'step {ZOO_ITERS}')
-        return
-    lines = run_cli(['tools/torch_port_test.py', config,
-                     os.path.join(work, f'iter_{ZOO_ITERS}.pth'), '--tta',
-                     '--work-dir', os.path.join(work, 'test_tta'),
-                     '--cfg-options', *options, f'tta_pipeline={tta!r}'])
-    tested = json.loads(lines[-1])
-    say(f'  {label} test CLI --tta on iter_{ZOO_ITERS}.pth: '
-        f'{time.perf_counter() - t0:.2f} s; {tested}')
-    if not tested or not all(np.isfinite(v) for v in tested.values()):
-        raise AssertionError(f'test-time augmentation gave {tested}')
+    if tta is not None:
+        t0 = time.perf_counter()
+        lines = call_cli(['tools/torch_port_test.py', config, checkpoint,
+                         '--tta', '--work-dir', os.path.join(work, 'test_tta'),
+                         '--cfg-options', *options, f'tta_pipeline={tta!r}'])
+        tested = json.loads(lines[-1])
+        say(f'  {label} test CLI --tta on iter_{ZOO_ITERS}.pth: '
+            f'{time.perf_counter() - t0:.2f} s; {tested}')
+        if not tested or not all(np.isfinite(v) for v in tested.values()):
+            raise AssertionError(f'test-time augmentation gave {tested}')
 
 
 def segnext(card, tmp):
@@ -2033,9 +2147,9 @@ def slide(card, tmp):
     crops of 480), and ``inference_model`` on a PASCAL_FRAME_HW photo, which
     must raise as the JAX package does (resized to 390x520 and padded to
     416x544, fewer rows than the crop); then UNet through the CLIs on a
-    fabricated DRIVE tree (the test CLI with ``--tta``, by the
-    ``tta_pipeline`` of ``configs/_base_/datasets/drive.py``, which the UNet
-    config does not carry) and HRNet-W18 on a fabricated Pascal Context
+    fabricated DRIVE tree (the test CLI plain, held to the val, and with
+    ``--tta``, by the ``tta_pipeline`` of ``configs/_base_/datasets/drive.py``,
+    which the UNet config does not carry) and HRNet-W18 on a fabricated Pascal Context
     tree (no ``--tta``: its 0.5 view is smaller than the crop and raises, as
     in the JAX package); returns what ``zoo_models`` does."""
     import glob
@@ -2096,6 +2210,55 @@ def slide(card, tmp):
         Config.fromfile('configs/_base_/datasets/drive.py').tta_pipeline))
     zoo_entry_points(card, tmp, *SLIDE[0], tree='drive', tta=tta)
     zoo_entry_points(card, tmp, label, config, tree='pascal')
+    return out
+
+
+def datasets(card, tmp):
+    """Phase 15: ``init_model`` on the card of every config that the VOC +
+    SBD aug, COCO-Stuff 164k, iSAID, LoveDA, Potsdam and Vaihingen
+    datasets unblock (DATASET_CONFIGS: HRNet-W18/W18-Small/W48 on the
+    first five and BiSeNetV1 R-18/R-50/R-101 on COCO-Stuff, each also
+    ``-in1k-pre``) with its parameter count; BiSeNetV1 R-50 through
+    :func:`zoo_models` (R-101 once); then, on fabricated trees in ``tmp``,
+    HRNet-W18 on VOC aug (a ``ConcatDataset`` of the train and aug lists,
+    ``Pad`` to 512x512) and BiSeNetV1 R-50 on COCO-Stuff through the train
+    and test CLIs, and HRNet-W18-Small on iSAID (896x896 crops) through
+    the train CLI; returns what ``zoo_models`` does."""
+    import glob
+    from lednet_tpu_torch.apis import init_model
+    from lednet_tpu_torch.datasets import synthetic
+    configs = sorted(c for pattern in DATASET_CONFIGS for c in glob.glob(pattern))
+    t0 = time.perf_counter()
+    sizes = {}
+    for config in configs:
+        model = init_model(config, device='cuda')
+        sizes[os.path.basename(config)] = sum(p.numel()
+                                              for p in model.parameters())
+        del model
+    say(f'  init_model on the card, {len(configs)} configs in '
+        f'{time.perf_counter() - t0:.2f} s; parameters: ' +
+        ', '.join(f'{k} {v}' for k, v in sizes.items()))
+    if len(configs) != 24:
+        raise AssertionError(f'{len(configs)} configs, not 18 + 6')
+    out = zoo_models(card, BISENET_R50, BISENET_R101)
+    t0 = time.perf_counter()
+    synthetic.make_voc_aug_tree(
+        os.path.join(tmp, 'voc'), n_train=VOC_TREE_TRAIN, n_aug=VOC_TREE_AUG,
+        n_val=VOC_TREE_VAL, sizes_hw=VOC_FRAMES_HW, seed=SEED + 15)
+    synthetic.make_coco_stuff_tree(
+        os.path.join(tmp, 'coco'), n_train=COCO_TREE_TRAIN, n_val=COCO_TREE_VAL,
+        size_hw=COCO_FRAME_HW, seed=SEED + 15)
+    synthetic.make_isaid_tree(
+        os.path.join(tmp, 'isaid'), n_train=ISAID_TREE_TRAIN,
+        n_val=ISAID_TREE_VAL, size_hw=ISAID_TILE_HW, seed=SEED + 15)
+    say(f'  fabricated VOC aug ({VOC_TREE_TRAIN} train + {VOC_TREE_AUG} aug + '
+        f'{VOC_TREE_VAL} val PNGs at {VOC_FRAMES_HW}), COCO-Stuff '
+        f'({COCO_TREE_TRAIN} + {COCO_TREE_VAL} JPEGs at {COCO_FRAME_HW}) and '
+        f'iSAID ({ISAID_TREE_TRAIN} + {ISAID_TREE_VAL} PNG tiles at '
+        f'{ISAID_TILE_HW}) in {time.perf_counter() - t0:.2f} s')
+    zoo_entry_points(card, tmp, *VOC_HR18, tree='voc')
+    zoo_entry_points(card, tmp, *BISENET_R50[0], tree='coco')
+    zoo_entry_points(card, tmp, *ISAID_HR18S, tree='isaid', test=False)
     return out
 
 
@@ -2494,6 +2657,8 @@ def main() -> int:
             sn_launches, sn_device, sn_a_err = segnext(card, tree)
         with phase('14 slide'):
             sl_launches, sl_device, sl_a_err = slide(card, tree)
+        with phase('15 datasets'):
+            ds_launches, ds_device, ds_a_err = datasets(card, tree)
     for row in rows:
         row['entry_point_launches'] = entry_launches[row['name']]
         row['entry_point_device_launches'] = entry_device[row['name']]
@@ -2520,6 +2685,10 @@ def main() -> int:
         row['slide_device_launches'] = sl_device[row['name']]
         row['slide_max_abs_err'] = (sl_a_err if row['name'] ==
                                     'normalize_image' else None)
+        row['datasets_launches'] = ds_launches[row['name']]
+        row['datasets_device_launches'] = ds_device[row['name']]
+        row['datasets_max_abs_err'] = (ds_a_err if row['name'] ==
+                                       'normalize_image' else None)
 
     say(card)
     say(json.dumps({'kernels': rows}))

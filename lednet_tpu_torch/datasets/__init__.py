@@ -13,14 +13,17 @@ from lednet_tpu_torch.datasets.loader import (DataLoader, DefaultSampler,
                                               DevicePrefetcher,
                                               InfiniteSampler,
                                               build_dataloader, collate)
-from lednet_tpu_torch.datasets.more_datasets import (ChaseDB1Dataset,
-                                                     DRIVEDataset, HRFDataset,
-                                                     PascalContextDataset,
-                                                     PascalContextDataset59,
-                                                     STAREDataset)
+from lednet_tpu_torch.datasets.more_datasets import (
+    COCOStuffDataset, ChaseDB1Dataset, ConcatDataset, DRIVEDataset,
+    HRFDataset, ISPRSDataset, LoveDADataset, PascalContextDataset,
+    PascalContextDataset59, PotsdamDataset, RepeatDataset, STAREDataset,
+    VaihingenDataset, configure_datasets, iSAIDDataset)
 
-__all__ = ['ADE20KDataset', 'BaseSegDataset', 'ChaseDB1Dataset',
-           'CityscapesDataset', 'Compose', 'DRIVEDataset', 'DataLoader',
-           'DefaultSampler', 'DevicePrefetcher', 'HRFDataset',
-           'InfiniteSampler', 'PascalContextDataset', 'PascalContextDataset59',
-           'PascalVOCDataset', 'STAREDataset', 'build_dataloader', 'collate']
+__all__ = ['ADE20KDataset', 'BaseSegDataset', 'COCOStuffDataset',
+           'ChaseDB1Dataset', 'CityscapesDataset', 'Compose', 'ConcatDataset',
+           'DRIVEDataset', 'DataLoader', 'DefaultSampler', 'DevicePrefetcher',
+           'HRFDataset', 'ISPRSDataset', 'InfiniteSampler', 'LoveDADataset',
+           'PascalContextDataset', 'PascalContextDataset59',
+           'PascalVOCDataset', 'PotsdamDataset', 'RepeatDataset',
+           'STAREDataset', 'VaihingenDataset', 'build_dataloader', 'collate',
+           'configure_datasets', 'iSAIDDataset']

@@ -2,9 +2,11 @@
 
 The port's copy of the tables it needs from ``lednet_tpu/datasets/metainfo.py``
 (Cityscapes, fixed by its official label spec, :352-363; ADE20K's 150
-classes, :9 and :34; Pascal Context's 60 and 59 classes, :145 and :172), of
-the retina datasets' two classes (``lednet_tpu/datasets/more_datasets.py:134``)
-and of the fork's 2-class VOC task
+classes, :9 and :34; Pascal Context's 60 and 59 classes, :145 and :172;
+COCO-Stuff's 171, :72 and :102; iSAID's 16, :317 and :322), of the retina
+datasets' two classes (``lednet_tpu/datasets/more_datasets.py:134``), of
+LoveDA's 7 and the ISPRS (Potsdam, Vaihingen) 6 (``more_datasets.py:36``,
+:50) and of the fork's 2-class VOC task
 (``lednet_tpu/datasets/basesegdataset.py:161``).
 """
 
@@ -142,3 +144,97 @@ PASCAL_CONTEXT_59_PALETTE = [
 
 RETINA_CLASSES = ('background', 'vessel')
 RETINA_PALETTE = [[120, 120, 120], [6, 230, 230]]
+
+COCOSTUFF_CLASSES = (
+    'person', 'bicycle', 'car', 'motorcycle', 'airplane', 'bus', 'train',
+    'truck', 'boat', 'traffic light', 'fire hydrant', 'stop sign',
+    'parking meter', 'bench', 'bird', 'cat', 'dog', 'horse', 'sheep',
+    'cow', 'elephant', 'bear', 'zebra', 'giraffe', 'backpack', 'umbrella',
+    'handbag', 'tie', 'suitcase', 'frisbee', 'skis', 'snowboard',
+    'sports ball', 'kite', 'baseball bat', 'baseball glove', 'skateboard',
+    'surfboard', 'tennis racket', 'bottle', 'wine glass', 'cup', 'fork',
+    'knife', 'spoon', 'bowl', 'banana', 'apple', 'sandwich', 'orange',
+    'broccoli', 'carrot', 'hot dog', 'pizza', 'donut', 'cake', 'chair',
+    'couch', 'potted plant', 'bed', 'dining table', 'toilet', 'tv',
+    'laptop', 'mouse', 'remote', 'keyboard', 'cell phone', 'microwave',
+    'oven', 'toaster', 'sink', 'refrigerator', 'book', 'clock', 'vase',
+    'scissors', 'teddy bear', 'hair drier', 'toothbrush', 'banner',
+    'blanket', 'branch', 'bridge', 'building-other', 'bush', 'cabinet',
+    'cage', 'cardboard', 'carpet', 'ceiling-other', 'ceiling-tile',
+    'cloth', 'clothes', 'clouds', 'counter', 'cupboard', 'curtain',
+    'desk-stuff', 'dirt', 'door-stuff', 'fence', 'floor-marble',
+    'floor-other', 'floor-stone', 'floor-tile', 'floor-wood', 'flower',
+    'fog', 'food-other', 'fruit', 'furniture-other', 'grass', 'gravel',
+    'ground-other', 'hill', 'house', 'leaves', 'light', 'mat', 'metal',
+    'mirror-stuff', 'moss', 'mountain', 'mud', 'napkin', 'net', 'paper',
+    'pavement', 'pillow', 'plant-other', 'plastic', 'platform',
+    'playingfield', 'railing', 'railroad', 'river', 'road', 'rock', 'roof',
+    'rug', 'salad', 'sand', 'sea', 'shelf', 'sky-other', 'skyscraper',
+    'snow', 'solid-other', 'stairs', 'stone', 'straw', 'structural-other',
+    'table', 'tent', 'textile-other', 'towel', 'tree', 'vegetable',
+    'wall-brick', 'wall-concrete', 'wall-other', 'wall-panel',
+    'wall-stone', 'wall-tile', 'wall-wood', 'water-other', 'waterdrops',
+    'window-blind', 'window-other', 'wood',)
+COCOSTUFF_PALETTE = [
+    [0, 192, 64], [0, 192, 64], [0, 64, 96], [128, 192, 192], [0, 64, 64],
+    [0, 192, 224], [0, 192, 192], [128, 192, 64], [0, 192, 96],
+    [128, 192, 64], [128, 32, 192], [0, 0, 224], [0, 0, 64], [0, 160, 192],
+    [128, 0, 96], [128, 0, 192], [0, 32, 192], [128, 128, 224],
+    [0, 0, 192], [128, 160, 192], [128, 128, 0], [128, 0, 32],
+    [128, 32, 0], [128, 0, 128], [64, 128, 32], [0, 160, 0], [0, 0, 0],
+    [192, 128, 160], [0, 32, 0], [0, 128, 128], [64, 128, 160],
+    [128, 160, 0], [0, 128, 0], [192, 128, 32], [128, 96, 128],
+    [0, 0, 128], [64, 0, 32], [0, 224, 128], [128, 0, 0], [192, 0, 160],
+    [0, 96, 128], [128, 128, 128], [64, 0, 160], [128, 224, 128],
+    [128, 128, 64], [192, 0, 32], [128, 96, 0], [128, 0, 192],
+    [0, 128, 32], [64, 224, 0], [0, 0, 64], [128, 128, 160], [64, 96, 0],
+    [0, 128, 192], [0, 128, 160], [192, 224, 0], [0, 128, 64],
+    [128, 128, 32], [192, 32, 128], [0, 64, 192], [0, 0, 32],
+    [64, 160, 128], [128, 64, 64], [128, 0, 160], [64, 32, 128],
+    [128, 192, 192], [0, 0, 160], [192, 160, 128], [128, 192, 0],
+    [128, 0, 96], [192, 32, 0], [128, 64, 128], [64, 128, 96],
+    [64, 160, 0], [0, 64, 0], [192, 128, 224], [64, 32, 0], [0, 192, 128],
+    [64, 128, 224], [192, 160, 0], [0, 192, 0], [192, 128, 96],
+    [192, 96, 128], [0, 64, 128], [64, 0, 96], [64, 224, 128],
+    [128, 64, 0], [192, 0, 224], [64, 96, 128], [128, 192, 128],
+    [64, 0, 224], [192, 224, 128], [128, 192, 64], [192, 0, 96],
+    [192, 96, 0], [128, 64, 192], [0, 128, 96], [0, 224, 0], [64, 64, 64],
+    [128, 128, 224], [0, 96, 0], [64, 192, 192], [0, 128, 224],
+    [128, 224, 0], [64, 192, 64], [128, 128, 96], [128, 32, 128],
+    [64, 0, 192], [0, 64, 96], [0, 160, 128], [192, 0, 64], [128, 64, 224],
+    [0, 32, 128], [192, 128, 192], [0, 64, 224], [128, 160, 128],
+    [192, 128, 0], [128, 64, 32], [128, 32, 64], [192, 0, 128],
+    [64, 192, 32], [0, 160, 64], [64, 0, 0], [192, 192, 160], [0, 32, 64],
+    [64, 128, 128], [64, 192, 160], [128, 160, 64], [64, 128, 0],
+    [192, 192, 32], [128, 96, 192], [64, 0, 128], [64, 64, 32],
+    [0, 224, 192], [192, 0, 0], [192, 64, 160], [0, 96, 192],
+    [192, 128, 128], [64, 64, 160], [128, 224, 192], [192, 128, 64],
+    [192, 64, 32], [128, 96, 64], [192, 0, 192], [0, 192, 32],
+    [64, 224, 64], [64, 0, 64], [128, 192, 160], [64, 96, 64],
+    [64, 128, 192], [0, 192, 160], [192, 224, 64], [64, 128, 64],
+    [128, 192, 32], [192, 32, 192], [64, 64, 192], [0, 64, 32],
+    [64, 160, 192], [192, 64, 64], [128, 64, 160], [64, 32, 192],
+    [192, 192, 192], [0, 64, 160], [192, 160, 192], [192, 192, 0],
+    [128, 64, 96], [192, 32, 64], [192, 64, 128], [64, 192, 96],
+    [64, 160, 64], [64, 64, 0]]
+
+ISAID_CLASSES = (
+    'background', 'ship', 'store_tank', 'baseball_diamond', 'tennis_court',
+    'basketball_court', 'Ground_Track_Field', 'Bridge', 'Large_Vehicle',
+    'Small_Vehicle', 'Helicopter', 'Swimming_pool', 'Roundabout',
+    'Soccer_ball_field', 'plane', 'Harbor',)
+ISAID_PALETTE = [
+    [0, 0, 0], [0, 0, 63], [0, 63, 63], [0, 63, 0], [0, 63, 127],
+    [0, 63, 191], [0, 63, 255], [0, 127, 63], [0, 127, 127], [0, 0, 127],
+    [0, 0, 191], [0, 0, 255], [0, 191, 127], [0, 127, 191], [0, 127, 255],
+    [0, 100, 155]]
+
+LOVEDA_CLASSES = ('background', 'building', 'road', 'water', 'barren',
+                  'forest', 'agricultural')
+LOVEDA_PALETTE = [[255, 255, 255], [255, 0, 0], [255, 255, 0], [0, 0, 255],
+                  [159, 129, 183], [0, 255, 0], [255, 195, 128]]
+
+ISPRS_CLASSES = ('impervious_surface', 'building', 'low_vegetation', 'tree',
+                 'car', 'clutter')
+ISPRS_PALETTE = [[255, 255, 255], [0, 0, 255], [0, 255, 255], [0, 255, 0],
+                 [255, 255, 0], [255, 0, 0]]

@@ -45,6 +45,30 @@ ignores) and the ``ImageSets/SegmentationContext/{train,val}.txt`` lists.
 Each label map is a grid of blocks of random labels; each image is its
 labels' Pascal Context palette colors plus Gaussian noise.
 
+:func:`make_voc_aug_tree`: the VOC2012 + SBD layout of
+``configs/_base_/datasets/pascal_voc12_aug.py``: ``JPEGImages/<name>.png``
+(the fork's ``PascalVOCDataset`` reads ``.png``), ``SegmentationClass/
+<name>.png`` palette label maps (VOC's color map; indices 0..20, most of
+them background, 255 on object borders) for the train and val names,
+``SegmentationClassAug/<name>.png`` gray label maps for the aug names,
+and the ``ImageSets/Segmentation/{train,aug,val}.txt`` lists.
+
+:func:`make_coco_stuff_tree`: the COCO-Stuff 164k layout of
+``configs/_base_/datasets/coco-stuff164k.py``: ``images/{train2017,
+val2017}/<12 digits>.jpg`` and ``annotations/{train2017,val2017}/
+<12 digits>_labelTrainIds.png`` gray labels 0..170, about 5% at 255.
+
+:func:`make_isaid_tree`, :func:`make_loveda_tree`, :func:`make_isprs_tree`
+(Potsdam and Vaihingen): the ``img_dir/{train,val}`` and
+``ann_dir/{train,val}`` layout of ``configs/_base_/datasets/{isaid,loveda,
+potsdam,vaihingen}.py``, ``.png`` tiles at each set's tile size.  iSAID's
+labels (``<tile>_instance_color_RGB.png``) are gray 0..15, as its
+converter writes them.  LoveDA's (0..7) and the ISPRS sets' (0..6) use 0
+for no data, which ``reduce_zero_label`` ignores.
+
+Each label map is a grid of blocks of random labels; each image is its
+labels' palette colors plus Gaussian noise.
+
 Everything follows from ``seed``.
 """
 from __future__ import annotations
@@ -59,19 +83,25 @@ from lednet_tpu_torch.datasets import imageio
 from lednet_tpu_torch.datasets.metainfo import (ADE20K_PALETTE,
                                                 APPLE_BRANCH_PALETTE,
                                                 CITYSCAPES_PALETTE,
+                                                COCOSTUFF_PALETTE,
+                                                ISAID_PALETTE, ISPRS_PALETTE,
+                                                LOVEDA_PALETTE,
                                                 PASCAL_CONTEXT_PALETTE)
 
 
 def fake_frame(rng: np.random.Generator, size_hw: Tuple[int, int],
                grid: Tuple[int, int] = (8, 16), ignored: float = 0.02,
-               noise: float = 20.0, palette=CITYSCAPES_PALETTE
+               noise: float = 20.0, palette=CITYSCAPES_PALETTE,
+               class_p: Optional[Sequence[float]] = None
                ) -> Tuple[np.ndarray, np.ndarray]:
     """(BGR uint8 image, uint8 labels) of ``size_hw``: labels of
-    ``len(palette)`` classes (Cityscapes' trainIds by default), about
+    ``len(palette)`` classes (Cityscapes' trainIds by default), drawn per
+    block uniformly or with the probabilities ``class_p``, about
     ``ignored`` of them at 255."""
     h, w = size_hw
     gh, gw = grid
-    cells = rng.integers(0, len(palette), (gh, gw))
+    cells = (rng.integers(0, len(palette), (gh, gw)) if class_p is None else
+             rng.choice(len(palette), (gh, gw), p=class_p))
     rows = np.minimum(np.arange(h) * gh // h, gh - 1)
     cols = np.minimum(np.arange(w) * gw // w, gw - 1)
     labels = cells[rows][:, cols].astype(np.uint8)
@@ -296,3 +326,140 @@ def make_pascal_context_tree(root: str, n_train: int = 4, n_val: int = 2,
                   'w', encoding='utf-8') as f:
             f.write(''.join(n + '\n' for n in names))
     return root
+
+
+def _voc_colormap(n: int = 256) -> np.ndarray:
+    """VOC's (n, 3) RGB label color map (class 1 is (128, 0, 0), 255 is
+    (224, 224, 192)): bit k of a label's three low bits sets bit 7 - k of
+    its R, G and B."""
+    cmap = np.zeros((n, 3), np.uint8)
+    for i in range(n):
+        c, r, g, b = i, 0, 0, 0
+        for k in range(8):
+            r |= ((c >> 0) & 1) << (7 - k)
+            g |= ((c >> 1) & 1) << (7 - k)
+            b |= ((c >> 2) & 1) << (7 - k)
+            c >>= 3
+        cmap[i] = (r, g, b)
+    return cmap
+
+
+def _borders(labels: np.ndarray) -> np.ndarray:
+    """``labels`` with 255 on every pixel whose right or lower neighbour
+    has another label (VOC's object outlines)."""
+    out = labels.copy()
+    out[:, :-1][labels[:, :-1] != labels[:, 1:]] = 255
+    out[:-1][labels[:-1] != labels[1:]] = 255
+    return out
+
+
+# VOC's photos are mostly background: a block is class 0 with p 0.6
+_VOC_CLASS_P = [0.6] + [0.02] * 20
+
+
+def make_voc_aug_tree(root: str, n_train: int = 6, n_aug: int = 6,
+                      n_val: int = 2,
+                      sizes_hw: Sequence[Tuple[int, int]] = ((375, 500),
+                                                             (500, 375)),
+                      seed: int = 0) -> str:
+    """Write the VOC2012 + SBD tree under ``root`` (frame i of each list
+    has size ``sizes_hw[i % n]``); returns ``root``."""
+    rng = np.random.default_rng(seed)
+    cmap = _voc_colormap()
+    for sub in ('JPEGImages', 'SegmentationClass', 'SegmentationClassAug',
+                'ImageSets/Segmentation'):
+        os.makedirs(osp.join(root, sub), exist_ok=True)
+    for split, n, year in (('train', n_train, 2007), ('aug', n_aug, 2008),
+                           ('val', n_val, 2009)):
+        names = []
+        for i in range(n):
+            name = f'{year}_{i:06d}'
+            img, labels = fake_frame(rng, sizes_hw[i % len(sizes_hw)],
+                                     grid=(6, 8), ignored=0.0,
+                                     palette=cmap[:21].tolist(),
+                                     class_p=_VOC_CLASS_P)
+            labels = _borders(labels)
+            imageio.imwrite(osp.join(root, 'JPEGImages', name + '.png'), img)
+            if split == 'aug':
+                imageio.imwrite(osp.join(root, 'SegmentationClassAug',
+                                         name + '.png'), labels)
+            else:
+                with open(osp.join(root, 'SegmentationClass', name + '.png'),
+                          'wb') as f:
+                    f.write(imageio.encode_png(labels, palette=cmap))
+            names.append(name)
+        with open(osp.join(root, 'ImageSets/Segmentation', f'{split}.txt'),
+                  'w', encoding='utf-8') as f:
+            f.write(''.join(n + '\n' for n in names))
+    return root
+
+
+def _split_tree(root: str, dirs: Tuple[str, str], splits, size_hw,
+                palette, img_suffix: str, seg_suffix: str, name,
+                rng: np.random.Generator, zero_ignored: bool = False,
+                ignored: float = 0.0) -> str:
+    """Write ``<dirs[0]>/<split>/<name><img_suffix>`` images and
+    ``<dirs[1]>/<split>/<name><seg_suffix>`` labels for each (split, n) of
+    ``splits``; with ``zero_ignored`` label 0 is drawn too (gray) and
+    ``palette`` is classes 1..."""
+    colors = [[128, 128, 128]] + list(palette) if zero_ignored else list(palette)
+    for split, n in splits:
+        for sub in dirs:
+            os.makedirs(osp.join(root, sub, split), exist_ok=True)
+        for i in range(n):
+            img, labels = fake_frame(rng, size_hw, grid=(6, 8),
+                                     ignored=ignored, palette=colors)
+            stem = name(split, i)
+            imageio.imwrite(osp.join(root, dirs[0], split, stem + img_suffix),
+                            img)
+            imageio.imwrite(osp.join(root, dirs[1], split, stem + seg_suffix),
+                            labels)
+    return root
+
+
+def make_coco_stuff_tree(root: str, n_train: int = 6, n_val: int = 2,
+                         size_hw: Tuple[int, int] = (480, 640),
+                         seed: int = 0) -> str:
+    """Write the COCO-Stuff 164k tree under ``root`` (JPEG quality 95,
+    4:2:0); returns ``root``."""
+    return _split_tree(
+        root, ('images', 'annotations'),
+        (('train2017', n_train), ('val2017', n_val)), size_hw,
+        COCOSTUFF_PALETTE, '.jpg', '_labelTrainIds.png',
+        lambda split, i: f'{(1 if split == "train2017" else 2) * 10**6 + i:012d}',
+        np.random.default_rng(seed), ignored=0.05)
+
+
+def make_isaid_tree(root: str, n_train: int = 6, n_val: int = 2,
+                    size_hw: Tuple[int, int] = (896, 896), seed: int = 0) -> str:
+    """Write the iSAID tree of 896x896 patches under ``root``; returns
+    ``root``."""
+    return _split_tree(
+        root, ('img_dir', 'ann_dir'), (('train', n_train), ('val', n_val)),
+        size_hw, ISAID_PALETTE, '.png', '_instance_color_RGB.png',
+        lambda split, i: f'P{i:04d}_0_896_0_896', np.random.default_rng(seed))
+
+
+def make_loveda_tree(root: str, n_train: int = 6, n_val: int = 2,
+                     size_hw: Tuple[int, int] = (1024, 1024),
+                     seed: int = 0) -> str:
+    """Write the LoveDA tree of 1024x1024 tiles under ``root``; returns
+    ``root``."""
+    return _split_tree(
+        root, ('img_dir', 'ann_dir'), (('train', n_train), ('val', n_val)),
+        size_hw, LOVEDA_PALETTE, '.png', '.png',
+        lambda split, i: str((0 if split == 'train' else 2522) + i),
+        np.random.default_rng(seed), zero_ignored=True)
+
+
+def make_isprs_tree(root: str, n_train: int = 6, n_val: int = 2,
+                    size_hw: Tuple[int, int] = (512, 512),
+                    seed: int = 0) -> str:
+    """Write a Potsdam / Vaihingen tree of 512x512 tiles under ``root``;
+    returns ``root``."""
+    return _split_tree(
+        root, ('img_dir', 'ann_dir'), (('train', n_train), ('val', n_val)),
+        size_hw, ISPRS_PALETTE, '.png', '.png',
+        lambda split, i: f'{2 if split == "train" else 3}_10_{i * 512}_0_'
+                         f'{i * 512 + 512}_512',
+        np.random.default_rng(seed), zero_ignored=True)

@@ -5,11 +5,11 @@ from lednet_tpu_torch.datasets.transforms.loading import (LoadAnnotations,
                                                           LoadImageFromFile,
                                                           LoadImageFromNDArray)
 from lednet_tpu_torch.datasets.transforms.transforms import (
-    GenerateEdge, PhotoMetricDistortion, RandomCrop, RandomFlip, RandomResize,
-    Resize)
+    GenerateEdge, Pad, PhotoMetricDistortion, RandomCrop, RandomFlip,
+    RandomResize, Resize)
 from lednet_tpu_torch.datasets.transforms.tta import TestTimeAug
 
 __all__ = ['FusedRandomResizeCropFlip', 'GenerateEdge', 'LoadAnnotations',
-           'LoadImageFromFile', 'LoadImageFromNDArray', 'PackSegInputs',
+           'LoadImageFromFile', 'LoadImageFromNDArray', 'PackSegInputs', 'Pad',
            'PhotoMetricDistortion', 'RandomCrop', 'RandomFlip',
            'RandomResize', 'Resize', 'TestTimeAug']

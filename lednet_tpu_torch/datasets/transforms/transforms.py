@@ -2,8 +2,8 @@
 
 Counterpart of ``lednet_tpu/datasets/transforms/transforms.py`` (``Resize``
 :48, ``RandomResize`` :89, ``RandomCrop`` :131, ``RandomFlip`` :169,
-``PhotoMetricDistortion`` :340, ``GenerateEdge`` :474).  Three differences,
-all in how, not what:
+``Pad`` :217, ``PhotoMetricDistortion`` :340, ``GenerateEdge`` :474).
+Three differences, all in how, not what:
 
 - every random draw comes from the ``np.random.RandomState`` passed as
   ``t(results, rng)``, and the draws are the JAX transforms' calls in their
@@ -174,6 +174,48 @@ class RandomFlip:
             results['img'] = np.flip(results['img'], axis=axis).copy()
             for key in results.get('seg_fields', []):
                 results[key] = np.flip(results[key], axis=axis).copy()
+        return results
+
+
+@TRANSFORMS.register_module()
+class Pad:
+    """Pad bottom-right to ``size=(h, w)`` (a larger side is kept) or to the
+    next multiples of ``size_divisor``: the image with ``pad_val``, every
+    seg field with ``seg_pad_val``; ``pad_val`` may be ``dict(img=,
+    seg=)``.  Sets ``pad_shape`` and ``img_shape`` to the padded size.
+    ``pad_to_square`` is accepted and unread, as in the JAX package."""
+
+    def __init__(self, size=None, size_divisor=None, pad_val=0,
+                 seg_pad_val=255, pad_to_square=False):
+        if (size is None) == (size_divisor is None):
+            raise ValueError('Pad takes exactly one of size and size_divisor')
+        self.size = size
+        self.size_divisor = size_divisor
+        if isinstance(pad_val, dict):
+            seg_pad_val = pad_val.get('seg', seg_pad_val)
+            pad_val = pad_val.get('img', 0)
+        self.pad_val = pad_val
+        self.seg_pad_val = seg_pad_val
+
+    def _target(self, h: int, w: int) -> Tuple[int, int]:
+        if self.size is not None:
+            return max(self.size[0], h), max(self.size[1], w)
+        d = self.size_divisor
+        return -(-h // d) * d, -(-w // d) * d
+
+    @staticmethod
+    def _pad(arr: np.ndarray, th: int, tw: int, value) -> np.ndarray:
+        pad = ((0, th - arr.shape[0]), (0, tw - arr.shape[1])) + \
+            ((0, 0),) * (arr.ndim - 2)
+        return np.pad(arr, pad, constant_values=value)
+
+    def __call__(self, results: Dict, rng=None) -> Dict:
+        th, tw = self._target(*results['img'].shape[:2])
+        results['img'] = self._pad(results['img'], th, tw, self.pad_val)
+        results['pad_shape'] = (th, tw)
+        results['img_shape'] = (th, tw)
+        for key in results.get('seg_fields', []):
+            results[key] = self._pad(results[key], th, tw, self.seg_pad_val)
         return results
 
 

@@ -18,15 +18,19 @@ and holds them together:
   training on one value per channel (torch refuses it; JAX does not);
 - the three shipped configs built unchanged (DDRNet-23-slim at 100x156,
   where 8x the head's logit is not the input size; DDRNet-23 at 128x128;
-  BiSeNetV1 R-18 at 96x160): logits within 1e-4 x max|logit| with argmax
-  agreement >= 99.9%, and the CPU eval step equal to ``predict``;
+  BiSeNetV1 R-18 at 96x160), and BiSeNetV1 R-50's COCO-Stuff config at a
+  test width with its 171 classes (96x128): logits within 1e-4 x
+  max|logit| with argmax agreement >= 99.9%, and the CPU eval step equal
+  to ``predict``;
 - one train step of DDRNet-23-slim (its OHEM pair, at batch 2 and 1) and
-  of BiSeNetV1 (CE
+  of BiSeNetV1 with a ResNet-18 and a ResNet-50 trunk (CE
   plus two FCN auxiliary heads, ``dropout_ratio`` 0 in all three heads,
   as two RNG streams cannot drop the same units) at a test width: loss
   within 1e-5, every weight within atol 1e-4 / rtol 5e-3, the BatchNorm
   running stats within atol 1e-5 / rtol 1e-4 (the bounds of
-  ``tests/test_torch_port_train.py``); the BiSeNetV1 schedule's lr
+  ``tests/test_torch_port_train.py``; R-50's logs within the larger of
+  these and 3x the port's own float32-vs-float64 distance, see
+  ``OWN_ROUNDING``); the BiSeNetV1 schedule's lr
   (LinearLR warm-up, then PolyLR to ``eta_min``) at iterations 0, 999,
   1000, 159999 and 160000;
 - ``Runner.val`` of DDRNet-23-slim (cut to a test width) on a fabricated
@@ -68,6 +72,8 @@ pytestmark = pytest.mark.usefixtures('one_thread')
 DDRNET_SLIM = f'{REPO}/configs/ddrnet/ddrnet_23-slim_cityscapes-1024x1024.py'
 DDRNET_23 = f'{REPO}/configs/ddrnet/ddrnet_23_cityscapes-1024x1024.py'
 BISENETV1 = f'{REPO}/configs/bisenetv1/bisenetv1_r18-d32_cityscapes-1024x1024.py'
+BISENETV1_R50 = (f'{REPO}/configs/bisenetv1/'
+                 'bisenetv1_r50-d32_4xb4-160k_coco-stuff164k-512x512.py')
 TOL_MODULE = 1e-5          # bricks, rel to the largest output
 TOL_MODEL = 1e-4           # whole segmentors, rel to the largest logit
 METRIC_TOL = 0.05          # percentage points, port val against JAX val
@@ -359,30 +365,67 @@ def test_convert_maps_every_zoo_name(config):
 
 
 # ------------------------------------------------------------------ segmentors
-def _segmentor_pair(config, shape, seed):
+def _segmentor_pair(config, shape, seed, extra=()):
     jcfg = JConfig.fromfile(config)
+    jcfg.merge_from_dict(dict(extra))
     jmodel = JMODELS.build(dict(jcfg.model))
     jpre = JMODELS.build(dict(jcfg.model.data_preprocessor))
-    params, stats = loss_variables(jmodel, (1, 64, 64), seed=seed)
+    params, stats = loss_variables(jmodel, (1, 64, 64),
+                                   n_classes=jcfg.model.decode_head.num_classes,
+                                   seed=seed)
     variables = jax_variables(params, stats)
 
     def jax_logits(imgs):
         x, _, _ = jpre(jnp.asarray(imgs), None, training=False)
         return np.asarray(jmodel.apply(variables, x, method='predict'))
-    model = init_model(config, device='cpu')
+    cfg = Config.fromfile(config)
+    cfg.merge_from_dict(dict(extra))
+    model = init_model(cfg, device='cpu')
     load_port(model, params, stats)
     return jax_logits, model
 
 
-@pytest.mark.parametrize('config,shape', [(DDRNET_SLIM, (100, 156)),
-                                          (DDRNET_23, (128, 128)),
-                                          (BISENETV1, (96, 160))],
-                         ids=['ddrnet_23-slim', 'ddrnet_23', 'bisenetv1_r18'])
-def test_segmentor_predict_matches_jax(config, shape):
+def _small_bisenet(config=BISENETV1, classes=3):
+    """BiSeNetV1 at a test width (ResNet-18 trunk 16-128, context 32-128;
+    ResNet-50 trunk 32-256, context 64-256), ``classes`` classes, every
+    head's dropout 0."""
+    model = Config.fromfile(config).model
+    depth = model.backbone.backbone_cfg.depth
+    base, expansion = (16, 1) if depth == 18 else (8, 4)
+    context = tuple(base * expansion * 2 ** i for i in (1, 2, 3))
+    aux = [dict(h, in_channels=context[0], channels=16, num_classes=classes,
+                dropout_ratio=0.0) for h in model.auxiliary_head]
+    return {'model.backbone.backbone_cfg': dict(type='ResNet', depth=depth,
+                                                stem_channels=16,
+                                                base_channels=base),
+            'model.backbone.context_channels': context,
+            # the fusion module takes the spatial path and the 1/8 context
+            # concatenated, context_channels[1] of them
+            'model.backbone.spatial_channels': (16, 16, 16, context[1] - context[0]),
+            'model.backbone.out_channels': 64,
+            'model.decode_head.in_channels': 64,
+            'model.decode_head.channels': 32,
+            'model.decode_head.num_classes': classes,
+            'model.decode_head.dropout_ratio': 0.0,
+            'model.auxiliary_head': aux,
+            'model.data_preprocessor.size': (128, 128)}
+
+
+SEGMENTORS = {'ddrnet_23-slim': (DDRNET_SLIM, (100, 156), {}),
+              'ddrnet_23': (DDRNET_23, (128, 128), {}),
+              'bisenetv1_r18': (BISENETV1, (96, 160), {}),
+              'bisenetv1_r50_coco-stuff164k': (
+                  BISENETV1_R50, (96, 128), _small_bisenet(BISENETV1_R50, 171))}
+
+
+@pytest.mark.parametrize('name', list(SEGMENTORS))
+def test_segmentor_predict_matches_jax(name):
     """The shipped config unchanged (full width, float32 input, 19
-    classes): ``predict`` of two seeded images, the eval step on the CPU
-    too."""
-    jax_logits, model = _segmentor_pair(config, shape, seed=24)
+    classes), or BiSeNetV1 R-50's COCO-Stuff config at a test width with
+    its 171 classes: ``predict`` of two seeded images, the eval step on
+    the CPU too."""
+    config, shape, extra = SEGMENTORS[name]
+    jax_logits, model = _segmentor_pair(config, shape, seed=24, extra=extra)
     imgs = np.random.default_rng(25).integers(0, 256, (2,) + shape + (3,),
                                               dtype=np.uint8)
     ref = jax_logits(imgs)
@@ -390,7 +433,8 @@ def test_segmentor_predict_matches_jax(config, shape):
         x, _, _ = model.data_preprocessor(torch.from_numpy(imgs))
         assert x.dtype == torch.float32
         out = model.predict(x).numpy()
-    assert out.shape == ref.shape == (2,) + shape + (19,)
+    classes = 171 if extra else 19
+    assert out.shape == ref.shape == (2,) + shape + (classes,)
     assert np.isfinite(out).all()
     assert rel_err(out, ref) <= TOL_MODEL
     agree = (out.argmax(-1) == ref.argmax(-1)).mean()
@@ -407,26 +451,6 @@ SMALL_DDRNET = {'model.backbone.channels': 8, 'model.backbone.ppm_channels': 16,
                 'model.data_preprocessor.size': (128, 128)}
 
 
-def _small_bisenet():
-    """BiSeNetV1 at a test width (trunk 16-128, context 32-128), 3 classes,
-    every head's dropout 0."""
-    model = Config.fromfile(BISENETV1).model
-    aux = [dict(h, in_channels=32, channels=16, num_classes=3,
-                dropout_ratio=0.0) for h in model.auxiliary_head]
-    return {'model.backbone.backbone_cfg': dict(type='ResNet', depth=18,
-                                                stem_channels=16,
-                                                base_channels=16),
-            'model.backbone.context_channels': (32, 64, 128),
-            'model.backbone.spatial_channels': (16, 16, 16, 32),
-            'model.backbone.out_channels': 64,
-            'model.decode_head.in_channels': 64,
-            'model.decode_head.channels': 32,
-            'model.decode_head.num_classes': 3,
-            'model.decode_head.dropout_ratio': 0.0,
-            'model.auxiliary_head': aux,
-            'model.data_preprocessor.size': (128, 128)}
-
-
 def _batch(seed=40, shape=(2, 120, 128)):
     rng = np.random.default_rng(seed)
     imgs = rng.integers(0, 256, shape + (3,), dtype=np.uint8)
@@ -435,15 +459,30 @@ def _batch(seed=40, shape=(2, 120, 128)):
     return imgs, lbl
 
 
-@pytest.mark.parametrize('name', ['ddrnet_23-slim', 'ddrnet_23-slim_batch_1',
-                                  'bisenetv1_r18'])
+TRAIN = {'ddrnet_23-slim': (DDRNET_SLIM, SMALL_DDRNET),
+         'ddrnet_23-slim_batch_1': (DDRNET_SLIM, SMALL_DDRNET),
+         'bisenetv1_r18': (BISENETV1, _small_bisenet()),
+         'bisenetv1_r50': (BISENETV1_R50, _small_bisenet(BISENETV1_R50))}
+# The narrow ResNet-50 trunk's activations grow through its 16 residual
+# blocks (the gradient norm is 100x ResNet-18's), and float32 rounding
+# alone puts either package's step 4-8e-6 from the float64 step in loss
+# and JAX's 1.1x phase 6's weight bound from it.  Its logs are held as
+# ``chip_smoke.float32_bounds`` holds a float32 step on the card: within
+# the larger of the bound and 3x the port's own float32 step's distance
+# from its float64 step on the same inputs (``acc_seg``, an argmax, within
+# one pixel at least); weights and stats within phase 6's bounds
+OWN_ROUNDING = ('bisenetv1_r50',)
+
+
+@pytest.mark.parametrize('name', list(TRAIN))
 def test_train_step_matches_jax(name, one_thread):
     """One SGD step of the config (cut to a test width) in both packages
     from the same weights: DDRNet's OHEM pair (also at batch 1, where
     DAPPM's global branch normalizes one value per channel); BiSeNetV1's CE
-    on the decode head and both auxiliary heads (``aux_0.*``, ``aux_1.*``)."""
-    config, extra = ((BISENETV1, _small_bisenet()) if name == 'bisenetv1_r18'
-                     else (DDRNET_SLIM, SMALL_DDRNET))
+    on the decode head and both auxiliary heads (``aux_0.*``, ``aux_1.*``),
+    with a ResNet-18 trunk and with the ResNet-50 (bottleneck) trunk of the
+    COCO-Stuff config and its LinearLR warm-up."""
+    config, extra = TRAIN[name]
     jcfg = JConfig.fromfile(config)
     jcfg.merge_from_dict(extra)
     jmodel = JMODELS.build(dict(jcfg.model))
@@ -464,20 +503,36 @@ def test_train_step_matches_jax(name, one_thread):
     tstate, logs = step(create_train_state(model, opt, sched),
                         torch.from_numpy(imgs), torch.from_numpy(lbl.astype(np.int64)))
     assert tstate.step == 1 and model.training
+    own = {}
+    if name in OWN_ROUNDING:
+        model64 = init_model(cfg, device='cpu').double()
+        model64.load_state_dict(flax_to_state_dict(params, stats))
+        opt64, sched64 = build_optimizer(model64, cfg.optim_wrapper,
+                                         cfg.param_scheduler)
+        _, logs64 = make_train_step(model64, opt64, model64.data_preprocessor)(
+            create_train_state(model64, opt64, sched64), torch.from_numpy(imgs),
+            torch.from_numpy(lbl.astype(np.int64)))
+        own = {k: 3 * abs(logs[k].item() - logs64[k].item()) for k in logs}
+        own['grad_norm'] /= logs64['grad_norm'].item()
+        one_pixel = 100.0 / int((lbl != 255).sum())    # acc_seg is an argmax
+        own.update({k: max(v, 1.01 * one_pixel) for k, v in own.items()
+                    if k.endswith('acc_seg')})
 
     state, jlogs = jmake_train_step(jmodel, tx, jpre)(state, jnp.asarray(imgs),
                                                       jnp.asarray(lbl))
     keys = {k for k in jlogs if k not in ('loss', 'grad_norm')}
     want_keys = ({f'{p}.{k}' for p in ('decode', 'aux_0', 'aux_1')
-                  for k in ('loss_ce', 'acc_seg')} if name == 'bisenetv1_r18'
+                  for k in ('loss_ce', 'acc_seg')} if name.startswith('bisenetv1')
                  else {'decode.loss_context', 'decode.loss_spatial',
                        'decode.acc_seg'})
     assert set(logs) - {'loss', 'grad_norm'} == keys == want_keys
-    assert abs(logs['loss'].item() - float(jlogs['loss'])) <= 1e-5
+    assert abs(logs['loss'].item() - float(jlogs['loss'])) <= max(
+        1e-5, own.get('loss', 0.0))
     for k in keys:
-        assert logs[k].item() == pytest.approx(float(jlogs[k]), rel=1e-4, abs=1e-5), k
-    assert logs['grad_norm'].item() == pytest.approx(float(jlogs['grad_norm']),
-                                                     rel=1e-3)
+        assert logs[k].item() == pytest.approx(
+            float(jlogs[k]), rel=1e-4, abs=max(1e-5, own.get(k, 0.0))), k
+    assert logs['grad_norm'].item() == pytest.approx(
+        float(jlogs['grad_norm']), rel=max(1e-3, own.get('grad_norm', 0.0)))
     want = flax_to_state_dict(jax.device_get(state.params),
                               jax.device_get(state.batch_stats))
     got = model.state_dict()

@@ -43,6 +43,7 @@ def main(argv=None):
         raise NotImplementedError('multi-GPU evaluation is later work in the '
                                   'port (ROADMAP Queue 1 item 7)')
     from lednet_tpu_torch.config import Config
+    from lednet_tpu_torch.datasets import configure_datasets
     from lednet_tpu_torch.engine.runner import Runner
 
     cfg = Config.fromfile(args.config)
@@ -51,7 +52,8 @@ def main(argv=None):
     work_dir = args.work_dir or osp.join(
         './work_dirs', osp.splitext(osp.basename(args.config))[0])
     if args.tta:
-        cfg['test_dataloader']['dataset']['pipeline'] = cfg['tta_pipeline']
+        cfg['test_dataloader']['dataset'] = configure_datasets(
+            cfg['test_dataloader']['dataset'], pipeline=cfg['tta_pipeline'])
     if args.out:
         ev = dict(cfg.get('test_evaluator') or cfg.get('val_evaluator')
                   or dict(type='IoUMetric'))

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """The zoo phases of ``chip_smoke.py`` alone, on one NVIDIA GPU.
 
-    python3 tools/torch_port_zoo_smoke.py [--phase 10 | 11 | 12 | 13 | 14 | 10 11 ...]
+    python3 tools/torch_port_zoo_smoke.py [--phase 10 | 11 | ... | 15 | 10 11 ...]
 
 Prints the card's name and power limit, builds the kernels, fabricates the
 zoo's Cityscapes tree (``chip_smoke.zoo_tree``) and runs
@@ -30,8 +30,14 @@ phase asked for (default 10):
   forward; the card's step against the CPU's at 4 x 64x64), HRNet-W18's
   Pascal Context-59 slide forward once (and ``inference_model`` raising on
   a 500x375 photo, as in the JAX package), then UNet through the CLIs on a
-  fabricated DRIVE tree (the test CLI with ``--tta``) and HRNet-W18
-  on a fabricated Pascal Context tree.
+  fabricated DRIVE tree (the test CLI equal to the val, then with
+  ``--tta``) and HRNet-W18 on a fabricated Pascal Context tree;
+- 15: the datasets (``chip_smoke.datasets``): ``init_model`` on the card
+  of the 24 HRNet VOC aug / iSAID / LoveDA / Potsdam / Vaihingen and
+  BiSeNetV1 COCO-Stuff configs, then as 10 of BiSeNetV1 R-50 (R-101
+  once), then HRNet-W18 on a fabricated VOC + SBD aug tree and BiSeNetV1
+  R-50 on a COCO-Stuff one through the train and test CLIs, and
+  HRNet-W18-Small on an iSAID one (896x896 crops) through the train CLI.
 
 Exits non-zero if a phase fails or there is no GPU.
 """
@@ -47,7 +53,8 @@ sys.path.insert(0, REPO)
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument('--phase', nargs='+', choices=('10', '11', '12', '13', '14'),
+    ap.add_argument('--phase', nargs='+',
+                    choices=('10', '11', '12', '13', '14', '15'),
                     default=['10'])
     args = ap.parse_args()
     import torch
@@ -78,7 +85,9 @@ def main() -> int:
               '12': ('12 bisenetv2 hrnet',
                      lambda tree: chip_smoke.bise_hrnet(card, tree)),
               '13': ('13 segnext', lambda tree: chip_smoke.segnext(card, tree)),
-              '14': ('14 slide', lambda tree: chip_smoke.slide(card, tree))}
+              '14': ('14 slide', lambda tree: chip_smoke.slide(card, tree)),
+              '15': ('15 datasets',
+                     lambda tree: chip_smoke.datasets(card, tree))}
     try:
         with chip_smoke.zoo_tree() as tree:
             for key in args.phase:
