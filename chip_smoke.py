@@ -154,7 +154,7 @@ printing one flushed line with its seconds:
    ``tools/torch_port_train.py`` (20 steps, one val) on a tree of 6 + 2
    2048x1024 frames, its iteration time and loader wait from the log, and
    ``tools/torch_port_test.py`` on ``iter_20.pth`` equal to that val (in
-   phases 10-15 each CLI's ``main`` runs in this process, under torch's
+   phases 10-16 each CLI's ``main`` runs in this process, under torch's
    default TF32 flags, ``call_cli``; phases 8 and 9 run them as
    subprocesses);
 11. PIDNet and STDC: phase 10's checks of PIDNet-S and STDC1
@@ -164,7 +164,8 @@ printing one flushed line with its seconds:
    against eager, both timed); PIDNet-M, PIDNet-L and STDC2 one replayed
    forward each against eager; train steps at the configs' batches
    (PIDNet-S 6 x 1024x1024 with edge maps from ``GenerateEdge``, STDC1 12
-   x 512x1024); the card's step against the CPU's at 2 x 256x256 with
+   x 1024x1024, its loader's crop, where its preprocessor's size is
+   512x1024); the card's step against the CPU's at 2 x 256x256 with
    dropout 0 (float64; float32 with PIDHead's boundary gate pinned
    too); PIDNet-S through the train and test CLIs on phase 10's tree;
 12. BiSeNetV2 and HRNet: ``init_model`` on the card of their 4 + 10
@@ -240,6 +241,23 @@ printing one flushed line with its seconds:
    train and test CLIs, the test CLI equal to the step-20 val, and
    HRNet-W18-Small on iSAID (bs 4 of 896x896 crops) through the train
    CLI with its val, each with its iteration time and loader wait.
+16. realtime: phase 10's checks of the real-time Cityscapes zoo's next
+   five families (``REALTIME``: ICNet R-18 with ``ICNeck`` and two
+   auxiliary heads, Fast-SCNN, ERFNet, CGNet, LR-ASPP MobileNetV3-L;
+   ``configs/{icnet,fastscnn,erfnet,cgnet,mobilenet_v3}/``, unchanged) at
+   full width and bs 1 on the Cityscapes test frame, 1024x2048 (A exact at
+   float32 output, A once per forward and B-E never, the kernel path and
+   TF32 defaults against module forms, replay against eager, both timed
+   over 50 calls after 5), the replayed graph and the eager kernel path on
+   a CPU_FRAME_HW frame against the model copied to the CPU; each train
+   step at the config's batch of its loader's 1024x1024 crops (its own
+   ``crop_size`` reaches only the preprocessor); the card's step against
+   the CPU's at REALTIME_CHECK, 4 x 256x256 (float64; float32 with ReLU
+   signs and max pool choices pinned; ERFNet's backbone dropout 0 too);
+   ICNet (the neck and
+   both auxiliary heads) and CGNet (class-weighted CE, Adam) through the
+   train and test CLIs on phase 10's tree, the test CLI equal to the
+   step-20 val.
 
 It prints the card line and a ``{"kernels": [...]}`` line (``launches``:
 the wrappers' count in phase 4; ``device_launches``: the CUDA launches the
@@ -256,7 +274,9 @@ its plain version over phase 9's shapes; ``zoo_launches``,
 ``segnext_device_launches``, ``segnext_max_abs_err``: the same of phase
 13; ``slide_launches``, ``slide_device_launches``, ``slide_max_abs_err``:
 the same of phase 14; ``datasets_launches``, ``datasets_device_launches``,
-``datasets_max_abs_err``: the same of phase 15; E's row also has
+``datasets_max_abs_err``: the same of phase 15; ``realtime_launches``,
+``realtime_device_launches``, ``realtime_max_abs_err``: the same of phase
+16; E's row also has
 ``device_ms`` and ``cudnn_composition_ms`` per call at the flagship set,
 and ``val_ms``, ``val_plain_ms``, ``val_bound_ms``, ``val_device_ms`` and
 ``val_cudnn_composition_ms`` at the val set, all measured in this run),
@@ -370,6 +390,25 @@ COCO_TREE_TRAIN, COCO_TREE_VAL = 8, 4
 COCO_FRAME_HW = (480, 640)
 ISAID_TREE_TRAIN, ISAID_TREE_VAL = 8, 2
 ISAID_TILE_HW = (896, 896)                    # the converter's patches
+# phase 16: the real-time Cityscapes zoo's next five families, at full
+# width on the Cityscapes test frame (FRAME_HW); ICNet and CGNet also
+# through the CLIs
+REALTIME = (('ICNet R-18', 'configs/icnet/icnet_r18-d8_cityscapes-832x832.py'),
+            ('Fast-SCNN', 'configs/fastscnn/fast_scnn_cityscapes-512x1024.py'),
+            ('ERFNet', 'configs/erfnet/erfnet_cityscapes-512x1024.py'),
+            ('CGNet', 'configs/cgnet/cgnet_cityscapes-680x680.py'),
+            ('LR-ASPP MobileNetV3-L',
+             'configs/mobilenet_v3/lraspp_m-v3-d8_cityscapes-512x1024.py'))
+REALTIME_CLIS = ('ICNet R-18', 'CGNet')
+# the card's step against the CPU's, (batch, size).  At batch 2 a pyramid
+# pool's 1x1 bin (ICNet's ppm0, Fast-SCNN's) is BatchNormed over 2 values a
+# channel, (x1 - x2) / sqrt((x1 - x2)^2 + 4 eps) up to a sign: where the two
+# nearly tie, its input's float32 rounding comes out up to 1 / (2 sqrt(eps))
+# = 158x larger, and the step's float32 distance from float64 is a draw of
+# those few channels (tools/torch_port_train_gap.py --grad-trace); over 4
+# values a near tie needs all four to agree
+REALTIME_CHECK = (4, 256)
+CPU_FRAME_HW = (256, 512)     # the card's eval step against the CPU copy's
 BF16_U = 2.0 ** -8     # bfloat16's unit roundoff: the amp loss's bound, relative
 CE_LOSSES = [dict(type='CrossEntropyLoss', loss_weight=1.0),
              dict(type='CrossEntropyLoss', loss_weight=0.4)]
@@ -1044,7 +1083,7 @@ def call_cli(args):
     """Run a port CLI's ``main`` on its argv in this process, under torch's
     default TF32 flags (cuDNN convs TF32, matmuls float32), as a fresh
     process would run it; returns its stdout lines.  A raise is re-raised
-    with the end of its output.  Phases 10-15 call the CLIs so: a process
+    with the end of its output.  Phases 10-16 call the CLIs so: a process
     of its own costs 20-25 s before its first step on this machine (phases
     8 and 9 still run each CLI as a subprocess)."""
     import gc
@@ -1585,10 +1624,11 @@ def branch_path(card, expected):
 
 def without_dropout(cfg):
     """cfg options that set dropout 0 in the decode head and every
-    auxiliary head where the config has some, and the backbone's
-    ``drop_path_rate`` 0 where it has stochastic depth (two RNG streams
-    cannot drop the same units or samples), and a note saying so ('' when
-    none had any)."""
+    auxiliary head where the config has some, the backbone's
+    ``drop_path_rate`` 0 where it has stochastic depth and its
+    ``dropout_ratio`` 0 where it drops units (ERFNet's blocks; two RNG
+    streams cannot drop the same units or samples), and a note saying so
+    ('' when none had any)."""
     aux = cfg.model.get('auxiliary_head') or []
     one_aux = not isinstance(aux, (list, tuple))      # a head, not a list
     heads = [cfg.model.decode_head] + ([aux] if one_aux else list(aux))
@@ -1603,6 +1643,9 @@ def without_dropout(cfg):
     if cfg.model.backbone.get('drop_path_rate'):
         extra['model.backbone.drop_path_rate'] = 0.0
         notes.append('drop_path_rate 0')
+    if cfg.model.backbone.get('dropout_ratio'):
+        extra['model.backbone.dropout_ratio'] = 0.0
+        notes.append("the backbone's dropout 0")
     return extra, (', ' + ' and '.join(notes) + ' for this comparison only'
                    if notes else '')
 
@@ -1635,16 +1678,31 @@ def once(card, label, config, x8, gen):
     torch.cuda.empty_cache()
 
 
+def loader_crop(cfg):
+    """The crop the config's train loader gives: its pipeline's
+    ``RandomCrop`` size, through dataset wrappers (phase 16's configs crop
+    1024x1024, the base's, and pass their own ``crop_size`` to the
+    preprocessor only)."""
+    ds = cfg.train_dataloader.dataset
+    while 'pipeline' not in ds:
+        ds = ds['datasets'][0] if 'datasets' in ds else ds['dataset']
+    crops = [t['crop_size'] for t in ds['pipeline'] if t['type'] == 'RandomCrop']
+    if len(crops) != 1:
+        raise AssertionError(f'train pipeline crops {crops}')
+    return tuple(crops[0])
+
+
 def timed_train(card, label, cfg, rng, gen):
     """The train step of ``cfg`` (a seeded model) at the config's batch and
-    crop on the card, TF32 off: one warm-up step and TRAIN_STEPS timed
-    (CUDA events; every log finite), and peak memory."""
+    its loader's crop (:func:`loader_crop`) on the card, TF32 off: one
+    warm-up step and TRAIN_STEPS timed (CUDA events; every log finite),
+    and peak memory."""
     import torch
     from lednet_tpu_torch.apis import init_model
     from lednet_tpu_torch.engine import (build_optimizer, create_train_state,
                                          make_train_step)
     batch = cfg.train_dataloader.batch_size
-    crop = tuple(cfg.model.data_preprocessor.size)
+    crop = loader_crop(cfg)
     edges = edge_width(cfg)
     train_model = init_model(cfg, device='cuda', generator=gen)
     opt, sched = build_optimizer(train_model, cfg.optim_wrapper,
@@ -1684,17 +1742,20 @@ def timed_train(card, label, cfg, rng, gen):
 
 
 def zoo_models(card, models=ZOO, wide=ZOO_WIDE, frame_hw=(SIZE, SIZE),
-               check=(2, 256)):
-    """Phases 10-15, inference and training of ``models`` at their
+               check=(2, 256), cpu_hw=None):
+    """Phases 10-16, inference and training of ``models`` at their
     configs' widths (seeded weights, non-trivial BatchNorm stats; phase 10:
     DDRNet-23-slim and BiSeNetV1 R-18, phase 11: PIDNet-S and STDC1, phase
     12: BiSeNetV2 and HRNet-W18, phase 13: SegNeXt-T, phase 14: UNet-S5-D16
-    in slide mode, phase 15: BiSeNetV1 R-50), and one forward of each of
-    ``wide``, on frames of
+    in slide mode, phase 15: BiSeNetV1 R-50, phase 16: the five of
+    REALTIME), and one forward of each of ``wide``, on frames of
     ``frame_hw`` (padded to a multiple of 32 where ``inference_model`` pads
-    them), in the mode of each model's ``test_cfg`` (whole or slide); the
-    card's train step against the CPU's at ``check`` (batch, size); returns
-    the kernels' wrapper launches and device launches of their main path and
+    them), in the mode of each model's ``test_cfg`` (whole or slide); with
+    ``cpu_hw``, the eval step's replayed graph and the eager kernel path on
+    a frame of that size against the model copied to the CPU; each train
+    step timed at the config's batch and its loader's crop; the card's
+    train step against the CPU's at ``check`` (batch, size); returns the
+    kernels' wrapper launches and device launches of their main path and
     kernel A's largest error at float32 output."""
     import torch
     from lednet_tpu_torch.apis import inference_model, init_model
@@ -1732,11 +1793,22 @@ def zoo_models(card, models=ZOO, wide=ZOO_WIDE, frame_hw=(SIZE, SIZE),
                 raise AssertionError(f'{label}: preprocessing called {calls}')
             check_against_plain('normalize_image', *calls[0][1:], 0.0, a_errs)
 
-        # the main path: inference_model through the kernels, counted
-        kernels.reset_launch_counts()
-        traced = {}
-        with device_trace(traced):
-            res = inference_model(model, imgs, impl='cuda')
+        # the main path: inference_model through the kernels, counted.  An
+        # EmptyTrace is the profiler's failure (see traced_forward): the
+        # run goes again with a fresh eval step, which captures again
+        for attempt in (0, 1):
+            kernels.reset_launch_counts()
+            traced = {}
+            try:
+                with device_trace(traced):
+                    res = inference_model(model, imgs, impl='cuda')
+                break
+            except EmptyTrace:
+                if attempt:
+                    raise
+                say('  the device trace recorded no kernel at all; running '
+                    'inference_model again with a fresh eval step')
+                del model.__dict__['_eval_step']
         counts = kernels.launch_counts()
         forwards = ZOO_IMAGES + model._eval_step.captures
         say(f'  {label}: wrapper launches {counts}; CUDA launches on the '
@@ -1808,6 +1880,29 @@ def zoo_models(card, models=ZOO, wide=ZOO_WIDE, frame_hw=(SIZE, SIZE),
             f'{mem["capture"]:.3f} GiB, the graph\'s pool and input kept '
             f'{mem["capture kept"]:.3f} GiB; peak of an eager forward '
             f'{mem["eager"]:.3f} GiB; on {card}')
+        if cpu_hw is not None:
+            small = torch.from_numpy(rng.integers(0, 256, (1,) + cpu_hw + (3,),
+                                                  dtype=np.uint8))
+            cpu_model = init_model(config, device='cpu')
+            cpu_model.load_state_dict(model.state_dict())
+            with torch.inference_mode():
+                want = make_eval_step(cpu_model, cpu_model.data_preprocessor,
+                                      mode)(small).double()
+                x_small = small.cuda()
+                for name, got in (('replayed graph', step(x_small)),
+                                  ('eager kernel path',
+                                   predict(pre(x_small, impl='cuda')[0], 'cuda'))):
+                    got = got.cpu().double()
+                    e = ((got - want).abs().max() / want.abs().max()).item()
+                    agree = (got.argmax(-1) == want.argmax(-1)).double().mean().item()
+                    say(f'  {label} {"x".join(str(n) for n in small.shape[:3])}: '
+                        f'{name} on the card vs the model copied to the CPU rel '
+                        f'{e:.3e} (tol {TOL_MODEL:g}), argmax agreement {agree:.6f}')
+                    if not (got.shape == want.shape and e <= TOL_MODEL
+                            and agree >= MIN_ARGMAX_AGREEMENT):
+                        raise AssertionError(f'{label}: the card and the CPU '
+                                             'disagree')
+            del cpu_model
         if label == models[0][0]:
             calls = []
             with recording(calls), torch.inference_mode():
@@ -2053,7 +2148,7 @@ def zoo_entry_points(card, tmp, label, config, tree='cityscapes', tta=None,
     from lednet_tpu_torch.config import Config
 
     cfg = Config.fromfile(config)
-    crop = tuple(cfg.model.data_preprocessor.size)
+    crop = loader_crop(cfg)
     loader = cfg.train_dataloader
     options = data_root_options(cfg, os.path.join(tmp, tree))
     work = os.path.join(tmp, 'work_' + label.replace(' ', '_'))
@@ -2259,6 +2354,22 @@ def datasets(card, tmp):
     zoo_entry_points(card, tmp, *VOC_HR18, tree='voc')
     zoo_entry_points(card, tmp, *BISENET_R50[0], tree='coco')
     zoo_entry_points(card, tmp, *ISAID_HR18S, tree='isaid', test=False)
+    return out
+
+
+def realtime(card, tmp):
+    """Phase 16: the five of REALTIME (ICNet R-18 with its neck, Fast-SCNN,
+    ERFNet, CGNet, LR-ASPP MobileNetV3-L) through :func:`zoo_models` on
+    the Cityscapes test frame (1 x 1024 x 2048), each also against its copy
+    on the CPU at CPU_FRAME_HW, its train step against the CPU's at
+    REALTIME_CHECK, then ICNet and CGNet through the CLIs on
+    :func:`zoo_tree`'s tree in ``tmp``; returns what ``zoo_models``
+    does."""
+    out = zoo_models(card, REALTIME, (), frame_hw=FRAME_HW, cpu_hw=CPU_FRAME_HW,
+                     check=REALTIME_CHECK)
+    for label, config in REALTIME:
+        if label in REALTIME_CLIS:
+            zoo_entry_points(card, tmp, label, config)
     return out
 
 
@@ -2659,6 +2770,8 @@ def main() -> int:
             sl_launches, sl_device, sl_a_err = slide(card, tree)
         with phase('15 datasets'):
             ds_launches, ds_device, ds_a_err = datasets(card, tree)
+        with phase('16 realtime'):
+            rt_launches, rt_device, rt_a_err = realtime(card, tree)
     for row in rows:
         row['entry_point_launches'] = entry_launches[row['name']]
         row['entry_point_device_launches'] = entry_device[row['name']]
@@ -2688,6 +2801,10 @@ def main() -> int:
         row['datasets_launches'] = ds_launches[row['name']]
         row['datasets_device_launches'] = ds_device[row['name']]
         row['datasets_max_abs_err'] = (ds_a_err if row['name'] ==
+                                       'normalize_image' else None)
+        row['realtime_launches'] = rt_launches[row['name']]
+        row['realtime_device_launches'] = rt_device[row['name']]
+        row['realtime_max_abs_err'] = (rt_a_err if row['name'] ==
                                        'normalize_image' else None)
 
     say(card)

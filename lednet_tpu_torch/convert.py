@@ -5,20 +5,28 @@ The port's modules carry the flax module names, so the mapping is by path:
 - conv kernels HWIO -> OIHW (``kernel`` -> ``weight``, axes (3, 2, 0, 1)); a
   depthwise kernel (kh, kw, 1, C) becomes (C, 1, kh, kw) the same way, as do
   the raw SESP branch kernels ``spp_dw{i}`` / ``spp_dw_v2_{i}`` (3, 3, 1, n);
-  so does UNet's transposed conv (``deconv``): flax's ``ConvTranspose``
-  kernel with ``transpose_kernel=True`` is (k, k, out, in), the forward
-  conv's, and its transpose is ``ConvTranspose2d``'s (in, out, k, k),
-  unflipped;
+- a transposed conv (``deconv``) by the module that holds it: in UNet's
+  ``DeconvModule`` (beside ``norm``) flax's ``ConvTranspose`` has
+  ``transpose_kernel=True`` and a (k, k, out, in) kernel, the forward
+  conv's, whose (3, 2, 0, 1) transpose is ``ConvTranspose2d``'s (in, out,
+  k, k), unflipped; in ERFNet's ``UpsamplerBlock`` (beside ``bn``) it keeps
+  the default ``transpose_kernel=False`` and a (k, k, in, out) kernel,
+  which is ``ConvTranspose2d``'s weight flipped in both spatial axes, so it
+  is flipped back and transposed (2, 3, 0, 1); a ``deconv`` in any other
+  module raises;
+- the 2-D kernels of CGNet's context gate (``f_glo``'s ``fc1`` / ``fc2``,
+  flax ``Dense``: (in, out)) -> ``nn.Linear``'s (out, in) weight; any
+  other 2-D kernel raises;
 - BatchNorm ``scale``/``bias`` + ``mean``/``var`` -> ``weight``/``bias`` +
   ``running_mean``/``running_var`` (+ ``num_batches_tracked`` = 0); a
   LayerNorm's or GroupNorm's ``scale`` -> ``weight``;
 - PReLU ``alpha``, GETB ``relative_position_bias_table``, MSCAN's
   ``layer_scale_{1,2}`` and biases keep their names;
-- the segmentor's ``_backbone``/``_decode_head`` lose the leading
-  underscore, and its auxiliary heads ``_aux_heads_{i}`` become
+- the segmentor's ``_backbone``/``_neck``/``_decode_head`` lose the
+  leading underscore, and its auxiliary heads ``_aux_heads_{i}`` become
   ``aux_heads.{i}``;
-- the trunk that ``BiSeNetV1`` and ``STDCContextPathNet`` build inline,
-  which flax names after its class (``ResNet_0``, ``ResNetV1c_0``,
+- the trunk that ``BiSeNetV1``, ``STDCContextPathNet`` and ``ICNet`` build
+  inline, which flax names after its class (``ResNet_0``, ``ResNetV1c_0``,
   ``STDCNet_0``), is ``backbone``.
 
 Every other module keeps its name: ``_Stage``'s ``block{i}``, ResNet's
@@ -37,8 +45,22 @@ with ``conv0`` / ``conv{k}_{1,2}`` / ``conv_mix``, ``fc{1,2}``, ``dw``) /
 ``stage_norm{i}``, and LightHamHead's ``squeeze`` / ``hamburger``
 (``ham_in`` / ``ham_out``) / ``align`` / ``cls``, UNet's ``enc{i}`` /
 ``up{i}`` / ``dec{i}`` (``conv{j}``; ``InterpConv``'s ``conv``,
-``DeconvModule``'s ``deconv`` / ``norm``); a norm's module is
-``bn``, ``gn`` or ``ln`` by its type.  Any other automatic flax name (``ClassName_{n}``)
+``DeconvModule``'s ``deconv`` / ``norm``), ICNet's ``sub1_conv{1,2,3}`` /
+``conv_sub2`` / ``ppm{i}`` / ``psp_bottleneck`` / ``conv_sub4`` and
+ICNeck's ``cff_{24,12}`` (``conv_low`` / ``conv_high``), Fast-SCNN's
+``ltd_conv`` / ``ltd_sep{1,2}`` (``dw`` / ``pw``) / ``gfe{i}_{j}``
+(``expand`` / ``dw`` / ``project``) / ``ppm`` (``pool{s}``) / ``gfe_out`` /
+``ffm_{dw,low,high}`` and its separable head's ``conv{i}`` (``dw`` /
+``pw``), ERFNet's ``down{i}`` (``conv`` / ``bn``) / ``enc{1,2}_{i}`` /
+``dec{s}_{i}`` (``conv3x1_{1,2}`` / ``conv1x3_{1,2}`` / ``bn{1,2}``) /
+``up{s}`` (``deconv`` / ``bn``), CGNet's ``stem{i}`` / ``stem_norm{i}`` /
+``stem_act{i}`` / ``norm_prelu_{i}`` / ``act_prelu_{i}`` / ``level{1,2}_{i}``
+(``conv1x1`` / ``norm1`` / ``act1`` / ``f_loc`` / ``f_sur`` / ``bn`` /
+``act2`` / ``reduce`` / ``f_glo``), MobileNetV3's ``stem_conv`` /
+``stem_norm`` / ``b{i}_{expand,dw,se,project}`` (the SE block's ``fc1`` /
+``fc2``) / ``final_conv``, and LRASPPHead's ``aspp_conv`` / ``image_pool``
+/ ``conv_up_input`` / ``convs{i}`` / ``conv_up{i}`` / ``cls``; a norm's
+module is ``bn``, ``gn`` or ``ln`` by its type.  Any other automatic flax name (``ClassName_{n}``)
 has no counterpart in the port and raises.
 
 A checkpoint file is a ``.npz`` whose keys are ``'/'``-joined paths under a
@@ -84,16 +106,41 @@ def _module_path(path: Tuple[str, ...]) -> List[str]:
     return out
 
 
-def _param_entry(path: Tuple[str, ...], value: np.ndarray) -> Tuple[str, np.ndarray]:
+_DENSE_MODULES = ('f_glo',)        # modules whose 2-D kernels are Dense's
+
+
+def _param_entry(path: Tuple[str, ...], value: np.ndarray,
+                 siblings: frozenset) -> Tuple[str, np.ndarray]:
+    """The port's name and value of the flax leaf at ``path``; ``siblings``
+    are the names of the modules beside the leaf's own (its parent's
+    children, :func:`_children`), which tell a transposed conv's module."""
     mods, leaf = _module_path(path[:-1]), path[-1]
-    if leaf == 'kernel' and value.ndim == 4 or leaf.startswith('spp_dw'):
+    where = '/'.join(path)
+    if leaf == 'kernel' and path[-2] == 'deconv':
+        if value.ndim == 4 and 'norm' in siblings:        # UNet's DeconvModule
+            value = np.transpose(value, (3, 2, 0, 1))
+        elif value.ndim == 4 and siblings == {'deconv', 'bn'}:   # UpsamplerBlock
+            value = np.transpose(value[::-1, ::-1], (2, 3, 0, 1))
+        else:
+            raise ValueError(f'no port module for the transposed conv at {where}')
+        leaf = 'weight'
+    elif leaf == 'kernel' and value.ndim == 4 or leaf.startswith('spp_dw'):
         value = np.transpose(value, (3, 2, 0, 1))
         leaf = 'weight' if leaf == 'kernel' else leaf
+    elif leaf == 'kernel' and value.ndim == 2 and len(path) > 2 and \
+            path[-3] in _DENSE_MODULES:
+        value, leaf = value.T, 'weight'
     elif leaf == 'kernel':
-        raise ValueError(f'unexpected {value.ndim}-D kernel at {"/".join(path)}')
+        raise ValueError(f'unexpected {value.ndim}-D kernel at {where}')
     elif leaf == 'scale':
         leaf = 'weight'
     return '.'.join(mods + [leaf]), value
+
+
+def _children(tree: Mapping, path: Tuple[str, ...]) -> frozenset:
+    for key in path:
+        tree = tree[key]
+    return frozenset(tree)
 
 
 def flax_to_state_dict(params: Mapping, batch_stats: Optional[Mapping] = None
@@ -101,7 +148,8 @@ def flax_to_state_dict(params: Mapping, batch_stats: Optional[Mapping] = None
     """Nested flax variable dicts (numpy or jax arrays) -> a ``state_dict``."""
     sd: Dict[str, torch.Tensor] = {}
     for path, value in _flatten(params):
-        name, arr = _param_entry(path, np.asarray(value, np.float32))
+        name, arr = _param_entry(path, np.asarray(value, np.float32),
+                                 _children(params, path[:-2]))
         sd[name] = torch.from_numpy(np.ascontiguousarray(arr))
     for path, value in _flatten(batch_stats or {}):
         mods, leaf = _module_path(path[:-1]), path[-1]

@@ -10,20 +10,24 @@ placement), a 7x7/s2 stem or the three-conv deep stem (ResNetV1c), a
 ``out_indices``.  Blocks are named
 ``layer{stage}_{block}`` as in the flax tree.
 
+ICNet's trunk (``lednet_tpu/models/backbones/icnet.py:64-65``) sets
+``ceil_maxpool``: the stem's pool runs in ceil mode (the JAX package pads
+the bottom and right edge by one where the floor would drop it, :169-176),
+and enters the one trunk twice through ``forward``'s ``stage_range``.
+
 ``style``, ``frozen_stages``, ``norm_eval``, ``with_cp``, ``pretrained`` and
 ``init_cfg`` are accepted for the configs and, as in the JAX package, have no
-effect.  ``avg_down`` (ResNetV1d), ``multi_grid``, ICNet's ``ceil_maxpool``
-and ``stage_range``, which no config of the port's models sets, are later
-work.
+effect.  ``avg_down`` (ResNetV1d) and ``multi_grid``, which no config of the
+port's models sets, are later work.
 """
 from __future__ import annotations
 
 from typing import Dict, Optional, Sequence
 
 import torch.nn as nn
+import torch.nn.functional as F
 
 from lednet_tpu_torch.models.layers import BasicBlock, ConvModule, ResBottleneck
-from lednet_tpu_torch.ops.pool import max_pool2d
 from lednet_tpu_torch.registry import MODELS
 
 
@@ -46,7 +50,8 @@ class ResNet(nn.Module):
                  norm_cfg: Optional[Dict] = None, act_cfg: Optional[Dict] = None,
                  frozen_stages: int = -1, norm_eval: bool = False,
                  style: str = 'pytorch', pretrained: Optional[str] = None,
-                 init_cfg: Optional[Dict] = None, with_cp: bool = False):
+                 init_cfg: Optional[Dict] = None, with_cp: bool = False,
+                 ceil_maxpool: bool = False):
         super().__init__()
         if depth not in self.arch_settings:
             raise ValueError(f'invalid depth {depth} for ResNet')
@@ -54,6 +59,7 @@ class ResNet(nn.Module):
         relu = dict(type='ReLU')
         block_cls, stage_blocks = self.arch_settings[depth]
         self.deep_stem = deep_stem
+        self.ceil_maxpool = ceil_maxpool
         self.out_indices = tuple(out_indices)
         if deep_stem:
             mid = stem_channels // 2
@@ -67,6 +73,7 @@ class ResNet(nn.Module):
             self.stem = ConvModule(in_channels, stem_channels, 7, stride=2,
                                    padding=3, norm_cfg=norm_cfg, act_cfg=relu)
         self.stages = []
+        self.stage_channels = []        # each stage's output width
         in_ch = stem_channels
         for i in range(num_stages):
             planes = base_channels * 2 ** i
@@ -84,20 +91,29 @@ class ResNet(nn.Module):
                 names.append(name)
                 in_ch = planes * block_cls.expansion
             self.stages.append(names)
+            self.stage_channels.append(in_ch)
 
-    def forward(self, x, impl: Optional[str] = None):
+    def forward(self, x, impl: Optional[str] = None, stage_range=None):
         """x: (B, 3, H, W); the outputs of the stages in ``out_indices``.
-        ``impl`` is accepted for the segmentor's call and unused."""
-        if self.deep_stem:
-            x = self.stem3(self.stem2(self.stem1(x)))
-        else:
-            x = self.stem(x)
-        x = max_pool2d(x, 3, 2, 1)
+        ``stage_range=(lo, hi)`` runs stages ``lo..hi-1`` only, the stem only
+        when ``lo == 0`` (else ``x`` is stage ``lo - 1``'s output), and
+        returns each of their outputs, unfiltered by ``out_indices``
+        (``lednet_tpu/models/backbones/resnet.py:139-182``).  ``impl`` is
+        accepted for the segmentor's call and unused."""
+        lo, hi = stage_range if stage_range is not None else (0, len(self.stages))
+        if lo == 0:
+            if self.deep_stem:
+                x = self.stem3(self.stem2(self.stem1(x)))
+            else:
+                x = self.stem(x)
+            x = F.max_pool2d(x, 3, 2, 1, ceil_mode=self.ceil_maxpool)
         outs = []
-        for names in self.stages:
+        for names in self.stages[lo:hi]:
             for name in names:
                 x = getattr(self, name)(x)
             outs.append(x)
+        if stage_range is not None:
+            return tuple(outs)
         return tuple(outs[i] for i in self.out_indices)
 
 

@@ -1,5 +1,5 @@
 """FCN decode head, NCHW: the decode head of BiSeNetV1 and the auxiliary
-head of the zoo's configs.
+head of the zoo's configs; and its separable form, Fast-SCNN's decode head.
 
 Counterpart of ``lednet_tpu/models/decode_heads/fcn_head.py:25``: the input
 selected by ``in_index`` / ``input_transform`` (``select_inputs``),
@@ -64,17 +64,23 @@ class FCNHead(nn.Module):
         self.sampler = (MODELS.build(dict(sampler)) if sampler is not None
                         else None)
         for i in range(num_convs):
-            self.add_module(f'conv{i}', ConvModule(
-                in_ch if i == 0 else channels, channels, kernel_size,
-                padding=(kernel_size // 2) * dilation, dilation=dilation,
-                norm_cfg=norm_cfg, act_cfg=act_cfg))
+            self.add_module(f'conv{i}', self._conv(
+                in_ch if i == 0 else channels, channels, kernel_size, dilation,
+                norm_cfg, act_cfg))
         if concat_input:
-            self.conv_cat = ConvModule(in_ch + channels, channels, kernel_size,
-                                       padding=kernel_size // 2,
-                                       norm_cfg=norm_cfg, act_cfg=act_cfg)
+            self.conv_cat = self._conv(in_ch + channels, channels, kernel_size,
+                                       1, norm_cfg, act_cfg)
         self.cls = ClsSeg(channels, resolve_out_channels(num_classes,
                                                          out_channels),
                           dropout_ratio)
+
+    @staticmethod
+    def _conv(in_channels, out_channels, kernel_size, dilation, norm_cfg,
+              act_cfg) -> nn.Module:
+        """One of the head's convs (``conv{i}``, ``conv_cat``)."""
+        return ConvModule(in_channels, out_channels, kernel_size,
+                          padding=(kernel_size // 2) * dilation,
+                          dilation=dilation, norm_cfg=norm_cfg, act_cfg=act_cfg)
 
     def forward(self, inputs, with_aux: bool = True):
         """The logits of the selected input; ``with_aux`` is the segmentor's
@@ -97,3 +103,42 @@ class FCNHead(nn.Module):
         if size is None:
             return seg_logits
         return resize_bilinear(seg_logits, size, self.align_corners)
+
+
+class _SepConv(nn.Module):
+    """A depthwise-separable conv (``lednet_tpu/models/decode_heads/
+    psp_aspp.py:31``): a depthwise ``kernel_size`` conv (``dw``) and a 1x1
+    (``pw``), each with norm and activation."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: int = 3, dilation: int = 1,
+                 norm_cfg: Optional[Dict] = None, act_cfg: Optional[Dict] = None):
+        super().__init__()
+        norm_cfg = norm_cfg or dict(type='BN')
+        act_cfg = act_cfg or dict(type='ReLU')
+        self.dw = ConvModule(in_channels, in_channels, kernel_size,
+                             padding=(kernel_size // 2) * dilation,
+                             dilation=dilation, groups=in_channels,
+                             norm_cfg=norm_cfg, act_cfg=act_cfg)
+        self.pw = ConvModule(in_channels, out_channels, 1, norm_cfg=norm_cfg,
+                             act_cfg=act_cfg)
+
+    def forward(self, x):
+        return self.pw(self.dw(x))
+
+
+@MODELS.register_module()
+class DepthwiseSeparableFCNHead(FCNHead):
+    """Fast-SCNN's decode head (``lednet_tpu/models/decode_heads/
+    uper_ocr.py:144``): an ``FCNHead`` whose convs are separable
+    (``_SepConv``), undilated.  ``dw_act_cfg`` is accepted for the configs
+    and, as in the JAX package, unused: both halves take ``act_cfg``."""
+
+    def __init__(self, *args, dw_act_cfg: Optional[Dict] = None, **kwargs):
+        super().__init__(*args, **kwargs)
+
+    @staticmethod
+    def _conv(in_channels, out_channels, kernel_size, dilation, norm_cfg,
+              act_cfg) -> nn.Module:
+        return _SepConv(in_channels, out_channels, kernel_size,
+                        norm_cfg=norm_cfg, act_cfg=act_cfg)

@@ -31,12 +31,17 @@ class PReLU(nn.Module):
 
 def build_activation(act_cfg: Optional[Dict]) -> nn.Module:
     """mmcv ``build_activation_layer`` for the activations the port's
-    configs use: ReLU and GELU (exact, erf); ``act_cfg=None`` means
+    configs use: ReLU, ReLU6 (MobileNetV2's inverted residual), Sigmoid
+    (LR-ASPP's gate) and GELU (exact, erf); ``act_cfg=None`` means
     identity."""
     if act_cfg is None:
         return nn.Identity()
     if act_cfg['type'] == 'ReLU':
         return nn.ReLU()
+    if act_cfg['type'] == 'ReLU6':
+        return nn.ReLU6()
+    if act_cfg['type'] == 'Sigmoid':
+        return nn.Sigmoid()
     if act_cfg['type'] == 'GELU':
         return nn.GELU()
     raise ValueError(f"Unsupported activation in the port: {act_cfg['type']}")
@@ -307,17 +312,24 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
     var 1, PReLU 0.25, MSCAN's ``layer_scale_{1,2}`` 1e-2,
     relative-position tables normal(0.02) clipped at two standard
     deviations, transposed-conv kernels LeCun normal (variance 1 / fan_in,
-    flax's default for UNet's ``DeconvModule``).  Every parameter is
+    flax's default for UNet's ``DeconvModule``) or, where the module sets
+    ``init_gain = 2.0`` (ERFNet's ``UpsamplerBlock``), kaiming-normal over
+    the same fan, linear kernels LeCun normal and biases 0 (flax's
+    ``Dense``, CGNet's context gate).  Every parameter is
     overwritten, so the result depends on ``generator`` alone; a parameter of
     no known kind raises."""
     done = set()
     for mod in module.modules():
         for name, p in mod.named_parameters(recurse=False):
-            if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d)) and name == 'bias':
+            if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)) \
+                    and name == 'bias':
                 p.zero_()
             elif isinstance(mod, nn.ConvTranspose2d):     # (in, out, k, k)
                 fan_in = p.shape[1] * p.shape[2] * p.shape[3]
-                _normal_(p, math.sqrt(1.0 / fan_in), generator)
+                gain = getattr(mod, 'init_gain', 1.0)
+                _normal_(p, math.sqrt(gain / fan_in), generator)
+            elif isinstance(mod, nn.Linear):              # (out, in)
+                _normal_(p, math.sqrt(1.0 / p.shape[1]), generator)
             elif isinstance(mod, (nn.BatchNorm2d, nn.GroupNorm, nn.LayerNorm)):
                 p.fill_(1.0 if name == 'weight' else 0.0)
             elif isinstance(mod, PReLU):

@@ -16,8 +16,11 @@ ONE backbone + decode-head forward; each crop's logits are added into a
 (B, C, H, W) buffer in grid order and the sum is divided by the number of
 crops that covered each pixel (a constant of the shape, made once per
 device).  A crop larger than the image raises, as the JAX package's
-``dynamic_slice`` does.  Necks and the single-logit binary head are later
-work.
+``dynamic_slice`` does.  A ``neck`` (ICNet's ``ICNeck``), where the config
+has one, is built once and applied to the backbone's outputs in
+``extract_feat`` (``:48``, ``:67``), so ``loss``, ``predict``,
+``predict_slide`` and the TTA path all run it; flax names it ``_neck``.
+The single-logit binary head is later work.
 """
 from __future__ import annotations
 
@@ -36,6 +39,7 @@ from lednet_tpu_torch.registry import MODELS
 class EncoderDecoder(nn.Module):
 
     def __init__(self, backbone: Dict, decode_head: Dict,
+                 neck: Optional[Dict] = None,
                  auxiliary_head: Optional[Any] = None,
                  train_cfg: Optional[Dict] = None, test_cfg: Optional[Dict] = None,
                  data_preprocessor: Optional[Dict] = None):
@@ -45,6 +49,7 @@ class EncoderDecoder(nn.Module):
         self.train_cfg = dict(train_cfg or {})
         self.test_cfg = dict(test_cfg or {})
         self.backbone = MODELS.build(dict(backbone))
+        self.neck = MODELS.build(dict(neck)) if neck else None
         self.decode_head = MODELS.build(dict(decode_head))
         if auxiliary_head is None:
             auxiliary_head = []
@@ -55,7 +60,10 @@ class EncoderDecoder(nn.Module):
 
     def extract_feat(self, inputs: torch.Tensor, impl: Optional[str] = None):
         """inputs: (B, 3, H, W)."""
-        return self.backbone(inputs, impl)
+        feats = self.backbone(inputs, impl)
+        if self.neck is not None:
+            feats = self.neck(feats)
+        return feats
 
     def forward(self, inputs: torch.Tensor, impl: Optional[str] = None):
         """'tensor' mode on (B, 3, H, W): the decode head's raw outputs."""

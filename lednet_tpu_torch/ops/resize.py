@@ -5,7 +5,12 @@ torch's coordinate math; here torch computes it natively:
 
 - bilinear, ``align_corners=False``: half-pixel centres with the source
   coordinate clamped at 0 (``lednet_tpu/ops/resize.py:40-44``), which is what
-  ``F.interpolate(mode='bilinear', align_corners=False)`` does.  PyTorch's
+  ``F.interpolate(mode='bilinear', align_corners=False)`` does.  Given a
+  ``scale_factor`` instead of a size (``lednet_tpu/ops/resize.py:59-68``),
+  the output is ``int(in * f)`` and the source coordinate is mapped by the
+  factor, ``(dst + 0.5) / f - 0.5``, not by the size ratio: the two differ
+  at odd sizes (7 -> 3 at 0.5).  ``F.interpolate(scale_factor=f)`` does the
+  same.  PyTorch's
   CUDA kernel for a channels-first map runs one thread per output pixel,
   each looping over every (image, channel) pair: on a batch of many small
   maps (slide inference's stacked crops: 196 x 1024 channels at 8x8) that
@@ -25,19 +30,26 @@ import torch
 import torch.nn.functional as F
 
 
-def resize_bilinear(x: torch.Tensor, size: Sequence[int],
-                    align_corners: bool = False) -> torch.Tensor:
-    """Bilinear resize of an NCHW tensor to ``size=(H, W)``."""
-    size = (int(size[0]), int(size[1]))
+def resize_bilinear(x: torch.Tensor, size: Sequence[int] = None,
+                    align_corners: bool = False,
+                    scale_factor: float = None) -> torch.Tensor:
+    """Bilinear resize of an NCHW tensor to ``size=(H, W)``, or by
+    ``scale_factor`` (output ``int(in * f)``, coordinates mapped by ``f``)."""
+    if size is None:
+        size = (int(x.shape[-2] * scale_factor), int(x.shape[-1] * scale_factor))
+        geometry = dict(scale_factor=scale_factor)
+    else:
+        size = (int(size[0]), int(size[1]))
+        geometry = dict(size=size)
     if tuple(x.shape[-2:]) == size:
         return x
     if x.is_cuda and size[0] * size[1] < x.shape[0] * x.shape[1]:
         # fewer output pixels than (image, channel) pairs: channels-last
         x = x.contiguous(memory_format=torch.channels_last)
-        return F.interpolate(x, size=size, mode='bilinear',
-                             align_corners=align_corners).contiguous()
-    return F.interpolate(x, size=size, mode='bilinear',
-                         align_corners=align_corners)
+        return F.interpolate(x, mode='bilinear', align_corners=align_corners,
+                             **geometry).contiguous()
+    return F.interpolate(x, mode='bilinear', align_corners=align_corners,
+                         **geometry)
 
 
 def _nearest_coords(out_size: int, in_size: int) -> np.ndarray:

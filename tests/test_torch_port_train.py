@@ -44,7 +44,7 @@ from lednet_tpu.models.losses import cross_entropy as jce
 from lednet_tpu.registry import MODELS as JMODELS
 from lednet_tpu_torch.apis import init_model
 from lednet_tpu_torch.config import Config
-from lednet_tpu_torch.convert import _param_entry, flax_to_state_dict
+from lednet_tpu_torch.convert import _children, _param_entry, flax_to_state_dict
 from lednet_tpu_torch.engine import (build_lr_schedule, build_optimizer,
                                      create_train_state, make_eval_step,
                                      make_train_step, param_multipliers)
@@ -302,7 +302,8 @@ def test_paramwise_multipliers_match_jax(small_led, name):
     names = set()
     for path, leaf in flat:
         keys = tuple(str(getattr(k, 'key', k)) for k in path)
-        name_, _ = _param_entry(keys, np.asarray(leaf))
+        name_, _ = _param_entry(keys, np.asarray(leaf),
+                                _children(params, keys[:-2]))
         names.add(name_)
         lr_mult, decay_mult = mults[name_]
         assert decay_mult == decay(path, leaf), name_

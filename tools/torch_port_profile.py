@@ -5,7 +5,8 @@
 
 Builds the flagship LED-Net (``configs/LED_Net/lednet_80k_cityscapes-1024x1024.py``,
 or the model of ``--config``: DDRNet, BiSeNetV1, PIDNet, STDC, BiSeNetV2,
-HRNet, SegNeXt and UNet run kernel A alone and skip the kernel E readings
+HRNet, SegNeXt, UNet, ICNet, Fast-SCNN, ERFNet, CGNet and LR-ASPP run
+kernel A alone and skip the kernel E readings
 below) with seeded random weights through ``lednet_tpu_torch.apis.init_model``,
 and profiles bs=1 forwards (preprocess + ``predict``, or ``predict_slide``
 where the config's ``test_cfg`` says slide) of a ``--size`` square or an
@@ -50,7 +51,10 @@ forward to FILE, to diff two trees' forwards.
     python3 tools/torch_port_profile.py --config CFG --train
 
 instead profiles the config's train step (``make_train_step``, TF32 off;
-in bfloat16 where the config sets ``bf16``) at its train batch and crop (``chip_smoke.train_batch``; with edge maps
+in bfloat16 where the config sets ``bf16``) at its train batch and its
+loader's crop (``chip_smoke.loader_crop``: the pipeline's ``RandomCrop``,
+which for STDC and the real-time zoo is larger than the preprocessor's
+``size``) (``chip_smoke.train_batch``; with edge maps
 where the pipeline has ``GenerateEdge``), ``--iters`` steps after two, with
 the same readings per step.
 
@@ -188,7 +192,7 @@ def train_step(model):
     state = create_train_state(model, opt, sched)
     imgs, lbl = chip_smoke.train_batch(
         np.random.default_rng(0), cfg.train_dataloader.batch_size,
-        tuple(cfg.model.data_preprocessor.size), chip_smoke.edge_width(cfg),
+        chip_smoke.loader_crop(cfg), chip_smoke.edge_width(cfg),
         cfg.model.decode_head.num_classes)
     imgs, lbl = imgs.cuda(), chip_smoke.to_device(lbl, 'cuda')
 

@@ -29,8 +29,8 @@ input, N(0,1) output gradient made zero-mean per channel, as BatchNorm's
 backward makes it), with cuDNN and with PyTorch's own convs, as a multiple
 of float32's unit roundoff times the largest sum of |terms|.
 
-``--grad-trace CONFIG`` instead runs one step of CONFIG (2 seeded images
-of size x size, the first seed, dropout 0 in every head; with their edge
+``--grad-trace CONFIG`` instead runs one step of CONFIG (``--batch``
+seeded images, 2 by default, of size x size, the first seed, dropout 0 in every head; with their edge
 maps where the config's pipeline has ``GenerateEdge``, as PIDNet's) in
 float64 on the CPU, then in float32 on the CPU and on the card (cuDNN off)
 with their discrete decisions (OHEM, ReLU, max pool, PIDHead's boundary
@@ -39,8 +39,14 @@ as ``chip_smoke.decisions`` pins them,
 and
 prints, in the order the float64 backward reaches them, each leaf module's
 output and input gradient and each parameter's gradient as the float32
-runs' largest error relative to the float64 one's largest value; the whole
-table goes to ``chiprun_out/grad_trace.json``.
+runs' largest error relative to the float64 one's largest value; before
+that, in forward order, each leaf module call's output (``name #k``: its
+k-th call, a shared module is entered more than once) as the float32
+runs' largest and mean error relative to the float64 output's largest
+value, and each loss term's absolute error.  A third float32 run on the
+CPU has oneDNN off (``cpu32_im2col``: PyTorch's own im2col + GEMM convs,
+as the card's cuDNN-off step).  The whole table goes to
+``chiprun_out/grad_trace.json``.
 """
 import argparse
 import json
@@ -103,7 +109,7 @@ def conv_probe():
     return out
 
 
-def grad_trace(config, size, seed):
+def grad_trace(config, size, seed, batch=2):
     """Relative gradient errors of one float32 step against float64, module
     by module in backward order (see the module docstring)."""
     import numpy as np
@@ -117,14 +123,14 @@ def grad_trace(config, size, seed):
     extra, _ = smoke.without_dropout(cfg)
     extra['model.data_preprocessor.size'] = (size, size)
     cfg.merge_from_dict(extra)
-    imgs, lbl = smoke.train_batch(np.random.default_rng(seed), 2, size,
+    imgs, lbl = smoke.train_batch(np.random.default_rng(seed), batch, size,
                                   smoke.edge_width(cfg))
 
-    def traced(device, dtype, kept, flips, pin):
+    def traced(device, dtype, kept, flips, pin, mkldnn=True):
         model = init_model(cfg, device=device,
                            generator=torch.Generator().manual_seed(seed))
         model.to(dtype)
-        grads, order = {}, []
+        grads, order, values, calls = {}, [], {}, {}
 
         def keep(name, t):
             def hook(g):
@@ -136,6 +142,9 @@ def grad_trace(config, size, seed):
 
         def forward_hook(name):
             def hook(mod, inp, out):
+                k = calls[name] = calls.get(name, -1) + 1
+                if torch.is_tensor(out):
+                    values[f'{name} #{k}'] = out.detach().double().cpu()
                 keep(f'{name} out', out)
                 keep(f'{name} in', inp[0] if inp else None)
             return hook
@@ -148,19 +157,46 @@ def grad_trace(config, size, seed):
                                      cfg.param_scheduler)
         step = make_train_step(model, opt, model.data_preprocessor)
         with torch.backends.cudnn.flags(enabled=False), \
+                torch.backends.mkldnn.flags(enabled=mkldnn), \
                 smoke.decisions(kept, flips, pin):
-            step(create_train_state(model, opt, sched), imgs.to(device),
-                 smoke.to_device(lbl, device))
-        return grads, order
+            _, logs = step(create_train_state(model, opt, sched),
+                           imgs.to(device), smoke.to_device(lbl, device))
+        logs = {k: float(v) for k, v in logs.items()}
+        return grads, order, values, logs
 
     kept = []
-    exact, order = traced('cpu', torch.float64, kept, None, False)
-    runs = {}
-    for name, device in (('cpu32', 'cpu'), ('card32', 'cuda')):
+    exact, order, exact_values, exact_logs = traced('cpu', torch.float64,
+                                                    kept, None, False)
+    runs, run_values, run_logs = {}, {}, {}
+    for name, device, mkldnn in (('cpu32', 'cpu', True),
+                                 ('cpu32_im2col', 'cpu', False),
+                                 ('card32', 'cuda', True)):
+        if device == 'cuda' and not torch.cuda.is_available():
+            continue
         n = {}
-        runs[name] = traced(device, torch.float32, kept, n, True)[0]
+        runs[name], _, run_values[name], run_logs[name] = traced(
+            device, torch.float32, kept, n, True, mkldnn)
         print(f'{name}: elements decided otherwise than in float64 (then '
               f'pinned): {n}', flush=True)
+    forward = []
+    for key, ref in exact_values.items():
+        scale = ref.abs().max().item()
+        errs = {}
+        for name, vals in run_values.items():
+            d = (vals[key] - ref).abs()
+            errs[name] = ((d.max().item() / scale, d.mean().item() / scale)
+                          if scale > 0 else None)
+        forward.append(dict(key=key, shape=list(ref.shape), max_abs=scale,
+                            **errs))
+        print(f'forward {key} {tuple(ref.shape)}: max|y| {scale:.3e}; rel err '
+              '(max, mean) ' + ', '.join(
+                  f'{n} {e[0]:.2e} {e[1]:.2e}' if e else f'{n} -'
+                  for n, e in errs.items()), flush=True)
+    terms = {k: {name: abs(logs[k] - v) for name, logs in run_logs.items()}
+             for k, v in exact_logs.items()}
+    for k, errs in terms.items():
+        print(f'log {k}: float64 {exact_logs[k]:.9f}; |diff| ' + ', '.join(
+            f'{n} {e:.3e}' for n, e in errs.items()), flush=True)
     rows = []
     for key in order:
         ref = exact[key]
@@ -174,7 +210,9 @@ def grad_trace(config, size, seed):
             for n, e in errs.items()), flush=True)
     os.makedirs(os.path.join(REPO, 'chiprun_out'), exist_ok=True)
     with open(os.path.join(REPO, 'chiprun_out', 'grad_trace.json'), 'w') as f:
-        json.dump(dict(config=config, size=size, seed=seed, rows=rows), f)
+        json.dump(dict(config=config, size=size, batch=batch, seed=seed,
+                       rows=rows,
+                       forward=forward, logs=terms), f)
     return rows
 
 
@@ -183,6 +221,7 @@ def main() -> int:
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument('--seeds', type=int, nargs='+', default=[2, 3, 4, 5])
     ap.add_argument('--size', type=int, default=256)
+    ap.add_argument('--batch', type=int, default=2)
     ap.add_argument('--cpu-only', action='store_true')
     ap.add_argument('--conv-probe', action='store_true')
     ap.add_argument('--grad-trace', metavar='CONFIG')
@@ -207,7 +246,7 @@ def main() -> int:
             timeout=60, check=True).stdout.strip().splitlines()[0].strip()
         print(card, flush=True)
     if args.grad_trace:
-        grad_trace(args.grad_trace, args.size, args.seeds[0])
+        grad_trace(args.grad_trace, args.size, args.seeds[0], args.batch)
         return 0
     cfg = Config.fromfile(os.path.join(REPO, smoke.CONFIG))
     cfg.merge_from_dict({'model.data_preprocessor.size': (args.size, args.size)})

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """The zoo phases of ``chip_smoke.py`` alone, on one NVIDIA GPU.
 
-    python3 tools/torch_port_zoo_smoke.py [--phase 10 | 11 | ... | 15 | 10 11 ...]
+    python3 tools/torch_port_zoo_smoke.py [--phase 10 | 11 | ... | 16 | 10 11 ...]
 
 Prints the card's name and power limit, builds the kernels, fabricates the
 zoo's Cityscapes tree (``chip_smoke.zoo_tree``) and runs
@@ -37,7 +37,12 @@ phase asked for (default 10):
   BiSeNetV1 COCO-Stuff configs, then as 10 of BiSeNetV1 R-50 (R-101
   once), then HRNet-W18 on a fabricated VOC + SBD aug tree and BiSeNetV1
   R-50 on a COCO-Stuff one through the train and test CLIs, and
-  HRNet-W18-Small on an iSAID one (896x896 crops) through the train CLI.
+  HRNet-W18-Small on an iSAID one (896x896 crops) through the train CLI;
+- 16: the real-time zoo (``chip_smoke.realtime``): as 10 of ICNet R-18,
+  Fast-SCNN, ERFNet, CGNet and LR-ASPP MobileNetV3-L on the 1024x2048
+  Cityscapes test frame (each also against its copy on the CPU at 256x512,
+  each train step at its loader's 1024x1024 crops), then ICNet and CGNet
+  through the train and test CLIs.
 
 Exits non-zero if a phase fails or there is no GPU.
 """
@@ -54,7 +59,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument('--phase', nargs='+',
-                    choices=('10', '11', '12', '13', '14', '15'),
+                    choices=('10', '11', '12', '13', '14', '15', '16'),
                     default=['10'])
     args = ap.parse_args()
     import torch
@@ -87,7 +92,9 @@ def main() -> int:
               '13': ('13 segnext', lambda tree: chip_smoke.segnext(card, tree)),
               '14': ('14 slide', lambda tree: chip_smoke.slide(card, tree)),
               '15': ('15 datasets',
-                     lambda tree: chip_smoke.datasets(card, tree))}
+                     lambda tree: chip_smoke.datasets(card, tree)),
+              '16': ('16 realtime',
+                     lambda tree: chip_smoke.realtime(card, tree))}
     try:
         with chip_smoke.zoo_tree() as tree:
             for key in args.phase:
