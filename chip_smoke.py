@@ -11,7 +11,8 @@ running stats.  It imports nothing of JAX or of the JAX package.  Phases, each
 printing one flushed line with its seconds:
 
 1. card: name and power limit (``nvidia-smi``), torch and CUDA versions;
-2. build: the CUDA kernels from ``lednet_tpu_torch/csrc`` (one ``nvcc``);
+2. build: the CUDA kernels from ``lednet_tpu_torch/csrc`` (one ``nvcc -c``
+   per source, all started together, then one link);
 3. kernels: one forward records every kernel call of the main path, and
    a device trace (``torch.profiler``) of it counts each kernel's CUDA
    launches per forward; each call is re-run through the kernel and through
@@ -258,6 +259,23 @@ printing one flushed line with its seconds:
    both auxiliary heads) and CGNet (class-weighted CE, Adam) through the
    train and test CLIs on phase 10's tree, the test CLI equal to the
    step-20 val.
+17. sctnet rtformer psp: phase 16's checks of SCTNet-B (``SCTHead``, OHEM),
+   RTFormer-Base (external and cross-resolution attention, OHEM on its
+   decode and auxiliary heads), PSPNet R50-D8 (``PSPHead``) and
+   DeepLabV3+ R50-D8 (``DepthwiseSeparableASPPHead`` with its c1 skip)
+   (``SCT_RTF_PSP``; ``configs/{sctnet,rtformer,pspnet,deeplabv3plus}/``,
+   unchanged) at full width and bs 1 on the 1024x2048 Cityscapes test
+   frame, RTFormer-Slim one replayed forward against eager; each train
+   step at its config's batch and its loader's 1024x1024 crops; the
+   card's step against the CPU's at REALTIME_CHECK, 4 x 256x256, and the
+   R50-D8 pair's at R50_D8_CHECK, 4 x 128x128 (SCTNet's drop path and the
+   heads' dropout 0); DSNet-S (``DSNET_CONFIG``) as the module the JAX
+   package runs (``dsnet_module``: ``init_model`` raises on its config;
+   its eval forward on a normalized 1024x2048 frame, its three outputs
+   against the module copied to the CPU at CPU_FRAME_HW, no kernel
+   launched, eager time); RTFormer-Base (its own schedule, batch 6) and
+   DeepLabV3+ through the train and test CLIs on phase 10's tree, the
+   test CLI equal to the step-20 val.
 
 It prints the card line and a ``{"kernels": [...]}`` line (``launches``:
 the wrappers' count in phase 4; ``device_launches``: the CUDA launches the
@@ -276,7 +294,8 @@ its plain version over phase 9's shapes; ``zoo_launches``,
 the same of phase 14; ``datasets_launches``, ``datasets_device_launches``,
 ``datasets_max_abs_err``: the same of phase 15; ``realtime_launches``,
 ``realtime_device_launches``, ``realtime_max_abs_err``: the same of phase
-16; E's row also has
+16; ``sct_rtf_psp_launches``, ``sct_rtf_psp_device_launches``,
+``sct_rtf_psp_max_abs_err``: the same of phase 17; E's row also has
 ``device_ms`` and ``cudnn_composition_ms`` per call at the flagship set,
 and ``val_ms``, ``val_plain_ms``, ``val_bound_ms``, ``val_device_ms`` and
 ``val_cudnn_composition_ms`` at the val set, all measured in this run),
@@ -409,6 +428,26 @@ REALTIME_CLIS = ('ICNet R-18', 'CGNet')
 # values a near tie needs all four to agree
 REALTIME_CHECK = (4, 256)
 CPU_FRAME_HW = (256, 512)     # the card's eval step against the CPU copy's
+# phase 17: SCTNet-B, RTFormer-Base, PSPNet R50-D8 and DeepLabV3+ R50-D8 at
+# full width on FRAME_HW, RTFormer-Slim once; RTFormer-Base and DeepLabV3+
+# through the CLIs; DSNet-S, which the JAX package runs as a module only
+SCT_RTF = (
+    ('SCTNet-B', 'configs/sctnet/sctnet-b_cityscapes-1024x1024.py'),
+    ('RTFormer-Base', 'configs/rtformer/rtformer-base_cityscapes-1024x1024.py'))
+R50_D8 = (
+    ('PSPNet R50-D8', 'configs/pspnet/pspnet_r50-d8_cityscapes-512x1024.py'),
+    ('DeepLabV3+ R50-D8',
+     'configs/deeplabv3plus/deeplabv3plus_r50-d8_cityscapes-512x1024.py'))
+SCT_RTF_PSP = SCT_RTF + R50_D8
+SCT_RTF_PSP_WIDE = (('RTFormer-Slim',
+                     'configs/rtformer/rtformer-slim_cityscapes-1024x1024.py'),)
+SCT_RTF_PSP_CLIS = ('RTFormer-Base', 'DeepLabV3+ R50-D8')
+# the R50-D8 pair's card-against-CPU step, (batch, size): their CPU steps
+# at REALTIME_CHECK took about 30 s each (float64, float32 on all threads
+# and on one), past phase 17's share of the script's time; at 128x128 the
+# D8 trunk's 1/8 map is 16x16, every 1x1 bin still BatchNormed over 4
+R50_D8_CHECK = (4, 128)
+DSNET_CONFIG = 'configs/dsnet/dsnet-s_cityscapes-1024x1024.py'
 BF16_U = 2.0 ** -8     # bfloat16's unit roundoff: the amp loss's bound, relative
 CE_LOSSES = [dict(type='CrossEntropyLoss', loss_weight=1.0),
              dict(type='CrossEntropyLoss', loss_weight=0.4)]
@@ -1622,6 +1661,17 @@ def branch_path(card, expected):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def class_default(module_cfg, name):
+    """The default of ``name`` in the constructor of the port's module
+    that ``module_cfg`` builds (SCTNet's ``drop_path_rate`` is 0.1 where
+    its config sets none), or None."""
+    import inspect
+    import lednet_tpu_torch.models  # noqa: F401  (registers the modules)
+    from lednet_tpu_torch.registry import MODELS
+    param = inspect.signature(MODELS.get(module_cfg['type'])).parameters.get(name)
+    return None if param is None else param.default
+
+
 def without_dropout(cfg):
     """cfg options that set dropout 0 in the decode head and every
     auxiliary head where the config has some, the backbone's
@@ -1640,7 +1690,9 @@ def without_dropout(cfg):
                 dict(aux, dropout_ratio=0.0) if one_aux else
                 [dict(h, dropout_ratio=0.0) for h in aux])
         notes.append('dropout 0 in every head')
-    if cfg.model.backbone.get('drop_path_rate'):
+    if cfg.model.backbone.get('drop_path_rate',
+                              class_default(cfg.model.backbone,
+                                            'drop_path_rate')):
         extra['model.backbone.drop_path_rate'] = 0.0
         notes.append('drop_path_rate 0')
     if cfg.model.backbone.get('dropout_ratio'):
@@ -2373,6 +2425,108 @@ def realtime(card, tmp):
     return out
 
 
+def dsnet_module(card):
+    """Phase 17's DSNet-S (DSNET_CONFIG), the module the JAX package runs
+    (it has no ``loss`` and no ``predict``): ``init_model`` on its config
+    must raise; built by ``MODELS.build`` on the card with seeded weights
+    and non-trivial BatchNorm stats, its eval forward on a seeded
+    normalized 1 x 3 x 1024 x 2048 frame (no preprocessor: it launches no
+    kernel of the port, counted in the wrappers and on the device) gives
+    three finite (1, 19, 1024, 2048) maps; on a CPU_FRAME_HW frame each of
+    the three against the module copied to the CPU within TOL_MODEL x its
+    max and argmax agreement >= MIN_ARGMAX_AGREEMENT; eager time over 50
+    calls after 5 and peak memory."""
+    import torch
+    from lednet_tpu_torch.apis import init_model
+    from lednet_tpu_torch.config import Config
+    from lednet_tpu_torch.models.layers import init_weights
+    from lednet_tpu_torch.ops import kernels
+    from lednet_tpu_torch.registry import MODELS
+    cfg = Config.fromfile(DSNET_CONFIG)
+    try:
+        init_model(cfg, device='cuda')
+    except TypeError as e:
+        say(f'  DSNet-S: init_model raises, as the JAX package\'s does: {e}')
+    else:
+        raise AssertionError('init_model built DSNet-S as a segmentor')
+    gen = torch.Generator().manual_seed(SEED + 17)
+    model = MODELS.build(dict(cfg.model))
+    init_weights(model, gen)
+    randomize_norms(model, gen)
+    model = model.cuda().eval()
+    classes = cfg.model.num_classes
+    x = torch.randn((1, 3) + FRAME_HW, generator=gen).cuda()
+    # an EmptyTrace is the profiler's failure (see traced_forward): the
+    # forward is traced once more
+    for attempt in (0, 1):
+        kernels.reset_launch_counts()
+        traced = {}
+        try:
+            with torch.inference_mode():
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                held = torch.cuda.memory_allocated()
+                with device_trace(traced):
+                    outs = model(x)
+                peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+            break
+        except EmptyTrace:
+            if attempt:
+                raise
+            say('  the device trace recorded no kernel at all; tracing the '
+                'DSNet forward again')
+    counts = kernels.launch_counts()
+    say(f'  DSNet-S module forward 1x3x{FRAME_HW[0]}x{FRAME_HW[1]}: wrapper '
+        f'launches {counts}; CUDA launches on the device {traced}')
+    if any(counts.values()) or any(traced.values()):
+        raise AssertionError('the DSNet forward launched a kernel of the port')
+    if len(outs) != 3 or any(o.shape != (1, classes) + FRAME_HW or
+                             not torch.isfinite(o).all() for o in outs):
+        raise AssertionError(f'DSNet outputs {[tuple(o.shape) for o in outs]}')
+    with torch.inference_mode():
+        eager_ms = cuda_ms(lambda: model(x), reps=50, warmup=5)
+    say(f'  DSNet-S module forward 1x3x{FRAME_HW[0]}x{FRAME_HW[1]} (aux_p, '
+        f'main, aux_d): eager {eager_ms:.3f} ms ({1000 / eager_ms:.1f} '
+        f'img/s); peak memory above what was held {peak:.3f} GiB; on {card}')
+    small = torch.randn((1, 3) + CPU_FRAME_HW, generator=gen)
+    cpu_model = copy.deepcopy(model).cpu()
+    with torch.inference_mode():
+        want = [o.double() for o in cpu_model(small)]
+        got = [o.cpu().double() for o in model(small.cuda())]
+    for name, a, b in zip(('aux_p', 'main', 'aux_d'), got, want):
+        e = ((a - b).abs().max() / b.abs().max()).item()
+        agree = (a.argmax(1) == b.argmax(1)).double().mean().item()
+        say(f'  DSNet-S {name} 1x3x{CPU_FRAME_HW[0]}x{CPU_FRAME_HW[1]}: the '
+            f'card vs the module copied to the CPU rel {e:.3e} (tol '
+            f'{TOL_MODEL:g}), argmax agreement {agree:.6f}')
+        if not (e <= TOL_MODEL and agree >= MIN_ARGMAX_AGREEMENT):
+            raise AssertionError(f'DSNet {name}: the card and the CPU disagree')
+    del model, cpu_model, outs, x
+    torch.cuda.empty_cache()
+
+
+def sct_rtformer_psp(card, tmp):
+    """Phase 17: the four of SCT_RTF_PSP through :func:`zoo_models` on the
+    Cityscapes test frame (1 x 1024 x 2048), RTFormer-Slim once, each also
+    against its copy on the CPU at CPU_FRAME_HW and its train step against
+    the CPU's at REALTIME_CHECK (SCT_RTF) or R50_D8_CHECK (R50_D8);
+    DSNet-S as a module (:func:`dsnet_module`);
+    then RTFormer-Base and DeepLabV3+ through the CLIs on
+    :func:`zoo_tree`'s tree in ``tmp``; returns what ``zoo_models`` does."""
+    launches, device, a_err = zoo_models(
+        card, SCT_RTF, SCT_RTF_PSP_WIDE, frame_hw=FRAME_HW,
+        cpu_hw=CPU_FRAME_HW, check=REALTIME_CHECK)
+    more = zoo_models(card, R50_D8, (), frame_hw=FRAME_HW, cpu_hw=CPU_FRAME_HW,
+                      check=R50_D8_CHECK)
+    launches = {n: c + more[0][n] for n, c in launches.items()}
+    device = {n: c + more[1][n] for n, c in device.items()}
+    dsnet_module(card)
+    for label, config in SCT_RTF_PSP:
+        if label in SCT_RTF_PSP_CLIS:
+            zoo_entry_points(card, tmp, label, config)
+    return launches, device, max(a_err, more[2])
+
+
 # ---------------------------------------------------------------- phases
 def main() -> int:
     import torch
@@ -2410,7 +2564,7 @@ def main() -> int:
         say(f'build {time.perf_counter() - t0:.2f} s -> '
             f'{os.path.relpath(lib_path, repo)}')
         log = (lib_path.parent / 'build.log').read_text().splitlines()
-        for line in log[1:2] + [l for l in log if 'registers' in l or 'spill' in l]:
+        for line in log[:1] + [l for l in log if 'registers' in l or 'spill' in l]:
             say('  ' + line.strip())
 
     gen = torch.Generator().manual_seed(SEED)
@@ -2772,6 +2926,8 @@ def main() -> int:
             ds_launches, ds_device, ds_a_err = datasets(card, tree)
         with phase('16 realtime'):
             rt_launches, rt_device, rt_a_err = realtime(card, tree)
+        with phase('17 sctnet rtformer psp'):
+            srp_launches, srp_device, srp_a_err = sct_rtformer_psp(card, tree)
     for row in rows:
         row['entry_point_launches'] = entry_launches[row['name']]
         row['entry_point_device_launches'] = entry_device[row['name']]
@@ -2806,6 +2962,10 @@ def main() -> int:
         row['realtime_device_launches'] = rt_device[row['name']]
         row['realtime_max_abs_err'] = (rt_a_err if row['name'] ==
                                        'normalize_image' else None)
+        row['sct_rtf_psp_launches'] = srp_launches[row['name']]
+        row['sct_rtf_psp_device_launches'] = srp_device[row['name']]
+        row['sct_rtf_psp_max_abs_err'] = (srp_a_err if row['name'] ==
+                                          'normalize_image' else None)
 
     say(card)
     say(json.dumps({'kernels': rows}))

@@ -26,7 +26,8 @@ from lednet_tpu_torch.convert import flax_to_state_dict, load_npz_variables
 from lednet_tpu_torch.datasets import Compose
 from lednet_tpu_torch.engine.state import EvalStep, float32_math, make_eval_step
 from lednet_tpu_torch.models.layers import init_weights
-from lednet_tpu_torch.models.segmentors.encoder_decoder import postprocess_logits
+from lednet_tpu_torch.models.segmentors.encoder_decoder import (
+    build_segmentor, postprocess_logits)
 from lednet_tpu_torch.registry import DATASETS, MODELS
 
 
@@ -49,13 +50,15 @@ def init_model(config: Union[str, Config], checkpoint: Optional[str] = None,
         holding a port ``state_dict`` (optionally under ``'state_dict'`` with
         ``'meta'`` beside it).  Without one, weights are initialised from
         ``generator`` (seed 0 when omitted).
+
+    A config whose model is not a segmentor (DSNet's) raises ``TypeError``.
     """
     import lednet_tpu_torch.models  # noqa: F401  (registers the modules)
     device = resolve_device(device)
     cfg = Config.fromfile(config) if isinstance(config, str) else config
     if cfg_options:
         cfg.merge_from_dict(cfg_options)
-    model = MODELS.build(dict(cfg.model))
+    model = build_segmentor(cfg.model)
     meta: Dict = {}
     if checkpoint is None:
         init_weights(model, generator or torch.Generator().manual_seed(0))

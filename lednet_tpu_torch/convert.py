@@ -17,6 +17,13 @@ The port's modules carry the flax module names, so the mapping is by path:
 - the 2-D kernels of CGNet's context gate (``f_glo``'s ``fc1`` / ``fc2``,
   flax ``Dense``: (in, out)) -> ``nn.Linear``'s (out, in) weight; any
   other 2-D kernel raises;
+- the raw banks, by an explicit rule: SCTNet's strip banks ``kv`` (7, 1,
+  in, 64) and ``kv3`` (1, 7, in, 64) are HWIO kernels of the conv into the
+  64 channels, and become its (64, in, kh, kw) weight by the kernel's
+  (3, 2, 0, 1) transpose (``ConvolutionalAttention`` runs the conv back
+  through ``weight.transpose(0, 1)``); RTFormer's token banks ``k``
+  (heads, d, m) and ``v`` (heads, m, d) keep their layout; a bank of
+  another rank raises;
 - BatchNorm ``scale``/``bias`` + ``mean``/``var`` -> ``weight``/``bias`` +
   ``running_mean``/``running_var`` (+ ``num_batches_tracked`` = 0); a
   LayerNorm's or GroupNorm's ``scale`` -> ``weight``;
@@ -59,7 +66,24 @@ ICNeck's ``cff_{24,12}`` (``conv_low`` / ``conv_high``), Fast-SCNN's
 ``act2`` / ``reduce`` / ``f_glo``), MobileNetV3's ``stem_conv`` /
 ``stem_norm`` / ``b{i}_{expand,dw,se,project}`` (the SE block's ``fc1`` /
 ``fc2``) / ``final_conv``, and LRASPPHead's ``aspp_conv`` / ``image_pool``
-/ ``conv_up_input`` / ``convs{i}`` / ``conv_up{i}`` / ``cls``; a norm's
+/ ``conv_up_input`` / ``convs{i}`` / ``conv_up{i}`` / ``cls``, SCTNet's
+``stem{1,2}`` / ``layer{s}_{i}`` (``conv1`` / ``conv2`` / ``down``) /
+``layer3_2`` / ``convdown4`` / ``layer{4,5}`` (``CFBlock``: ``attn`` with
+``norm``, ``kv``, ``kv3``; ``mlp_norm`` / ``mlp_conv{1,2}``) / ``spp`` and
+SCTHead's ``conv1`` / ``bn2`` / ``cls``, RTFormer's ``stem{1,2}`` /
+``layer{1,2,3}_{i}`` / ``layer3h_0`` / ``compression3`` / ``down3`` /
+``block{4,5}`` (``down`` / ``low_attn`` with ``pre_norm``, ``k``, ``v`` /
+``low_ffn`` and ``high_ffn`` with ``pre_norm`` / ``conv1`` / ``conv2`` /
+``high_attn`` with ``pre_norm`` / ``cross_kv`` / ``compression``) /
+``spp``, PSPHead's ``ppm{scale}`` / ``bottleneck`` / ``cls``, ASPPHead's
+``image_pool`` / ``aspp{i}`` (``dw`` / ``pw`` where separable) /
+``bottleneck`` / ``c1_bottleneck`` / ``sep{1,2}`` / ``cls``, and DSNet's
+``conv1a`` / ``conv1b`` / ``layer1_{i}`` / ``layer1_a`` / ``layer2_{i}`` /
+``layer{3,4}_{i}`` (``MFACB``: ``conv{i}`` / ``process{1,2}``) /
+``layer{3,4}__{i}`` / ``compression{3,4,5}`` / ``aff{1,2,3}`` /
+``layer5_`` / ``layer5`` / ``spp`` (``SPASPP``: ``conv{i}`` /
+``pooling`` / ``process{1,2,3}``) / ``up8`` / ``lastlayer`` /
+``seghead_{p,d}`` (``conv1`` / ``conv2``); a norm's
 module is ``bn``, ``gn`` or ``ln`` by its type.  Any other automatic flax name (``ClassName_{n}``)
 has no counterpart in the port and raises.
 
@@ -107,6 +131,9 @@ def _module_path(path: Tuple[str, ...]) -> List[str]:
 
 
 _DENSE_MODULES = ('f_glo',)        # modules whose 2-D kernels are Dense's
+# raw parameter banks: name -> (rank, axes to the port's layout or None)
+_RAW_BANKS = {'kv': (4, (3, 2, 0, 1)), 'kv3': (4, (3, 2, 0, 1)),
+              'k': (3, None), 'v': (3, None)}
 
 
 def _param_entry(path: Tuple[str, ...], value: np.ndarray,
@@ -124,6 +151,12 @@ def _param_entry(path: Tuple[str, ...], value: np.ndarray,
         else:
             raise ValueError(f'no port module for the transposed conv at {where}')
         leaf = 'weight'
+    elif leaf in _RAW_BANKS:
+        rank, axes = _RAW_BANKS[leaf]
+        if value.ndim != rank:
+            raise ValueError(f'a {value.ndim}-D bank at {where}: the port '
+                             f'reads {leaf!r} as {rank}-D')
+        value = value if axes is None else np.transpose(value, axes)
     elif leaf == 'kernel' and value.ndim == 4 or leaf.startswith('spp_dw'):
         value = np.transpose(value, (3, 2, 0, 1))
         leaf = 'weight' if leaf == 'kernel' else leaf

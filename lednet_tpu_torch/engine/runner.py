@@ -52,7 +52,8 @@ from lednet_tpu_torch.engine.optim import build_optimizer
 from lednet_tpu_torch.engine.state import (TrainState, create_train_state,
                                            make_eval_step, make_train_step)
 from lednet_tpu_torch.models.layers import init_weights
-from lednet_tpu_torch.models.segmentors.encoder_decoder import postprocess_logits
+from lednet_tpu_torch.models.segmentors.encoder_decoder import (
+    build_segmentor, postprocess_logits)
 from lednet_tpu_torch.models.segmentors.seg_tta import merge_tta_probs
 from lednet_tpu_torch.registry import METRICS, MODELS
 
@@ -62,7 +63,8 @@ class Runner:
                  device=None, seed: int = 0):
         """Build the model on ``device`` (``'cuda'`` unless the caller
         passes ``'cpu'``; without a GPU it raises), its weights initialised
-        from ``seed``."""
+        from ``seed``; a model that is not a segmentor (DSNet's) raises
+        ``TypeError``."""
         import lednet_tpu_torch.datasets  # noqa: F401  (registers them)
         import lednet_tpu_torch.evaluation  # noqa: F401
         import lednet_tpu_torch.models  # noqa: F401
@@ -72,7 +74,7 @@ class Runner:
         os.makedirs(self.work_dir, exist_ok=True)
         self.seed = seed
         model_cfg = dict(cfg.model)
-        self.model = MODELS.build(model_cfg)
+        self.model = build_segmentor(model_cfg)
         init_weights(self.model, torch.Generator().manual_seed(seed))
         self.model.to(self.device)
         pre_cfg = model_cfg.get('data_preprocessor') or cfg.get('data_preprocessor')

@@ -1,13 +1,15 @@
 # Importing the model modules registers them in MODELS.
 from lednet_tpu_torch.models import data_preprocessor  # noqa: F401
 from lednet_tpu_torch.models.backbones import (bisenetv1, bisenetv2,  # noqa: F401
-                                               cgnet, ddrnet, erfnet,
+                                               cgnet, ddrnet, dsnet, erfnet,
                                                fast_scnn, hrnet, icnet, lednet,
                                                mobilenet_v3, mscan, pidnet,
-                                               resnet, stdc, unet)
+                                               resnet, rtformer, sctnet, stdc,
+                                               unet)
 from lednet_tpu_torch.models.decode_heads import (fcn_head, ham_head,  # noqa: F401
                                                   led_head, lraspp_head,
-                                                  pid_head, stdc_head)
+                                                  pid_head, psp_head, sct_head,
+                                                  stdc_head)
 from lednet_tpu_torch.models import necks  # noqa: F401
 from lednet_tpu_torch.models import losses  # noqa: F401
 from lednet_tpu_torch import structures  # noqa: F401

@@ -94,14 +94,16 @@ class ResNet(nn.Module):
             self.stage_channels.append(in_ch)
 
     def forward(self, x, impl: Optional[str] = None, stage_range=None):
-        """x: (B, 3, H, W); the outputs of the stages in ``out_indices``.
-        ``stage_range=(lo, hi)`` runs stages ``lo..hi-1`` only, the stem only
+        """x: (B, 3, H, W), promoted to the weights' dtype; the outputs of
+        the stages in ``out_indices``.  ``stage_range=(lo, hi)`` runs stages ``lo..hi-1`` only, the stem only
         when ``lo == 0`` (else ``x`` is stage ``lo - 1``'s output), and
         returns each of their outputs, unfiltered by ``out_indices``
         (``lednet_tpu/models/backbones/resnet.py:139-182``).  ``impl`` is
         accepted for the segmentor's call and unused."""
         lo, hi = stage_range if stage_range is not None else (0, len(self.stages))
         if lo == 0:
+            stem = self.stem1 if self.deep_stem else self.stem
+            x = x.to(stem.conv.weight.dtype)
             if self.deep_stem:
                 x = self.stem3(self.stem2(self.stem1(x)))
             else:

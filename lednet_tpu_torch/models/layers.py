@@ -304,6 +304,17 @@ def _normal_(t: torch.Tensor, std: float, generator: torch.Generator) -> None:
     t.copy_(torch.randn(t.shape, generator=generator) * std)
 
 
+def _truncated_normal_(t: torch.Tensor, std: float,
+                       generator: torch.Generator) -> None:
+    """A standard normal truncated to (-2, 2), by its inverse CDF, times
+    ``std``."""
+    lo, hi = (0.5 * (1 + math.erf(b / math.sqrt(2))) for b in (-2.0, 2.0))
+    u = lo + (hi - lo) * torch.rand(t.shape, generator=generator,
+                                    dtype=torch.float64)
+    z = math.sqrt(2) * torch.erfinv(2 * u - 1)
+    t.copy_(z.clamp(-2.0, 2.0) * std)
+
+
 @torch.no_grad()
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:
     """Seeded initialisation matching the JAX package's initialisers: conv
@@ -315,13 +326,30 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
     flax's default for UNet's ``DeconvModule``) or, where the module sets
     ``init_gain = 2.0`` (ERFNet's ``UpsamplerBlock``), kaiming-normal over
     the same fan, linear kernels LeCun normal and biases 0 (flax's
-    ``Dense``, CGNet's context gate).  Every parameter is
+    ``Dense``, CGNet's context gate), conv kernels LeCun normal where the
+    conv sets ``lecun_init`` (a bare flax ``nn.Conv`` with flax's default
+    initialiser: RTFormer's ``cross_kv`` and ``ConvFFN.conv2``, DSNet's
+    ``_SegHead.conv2``), and a module's raw parameters by its
+    ``raw_init`` table, name -> (kind, std): ``'truncated_normal'`` draws
+    a standard normal truncated to (-2, 2) times std (flax's
+    ``truncated_normal``: SCTNet's ``kv`` / ``kv3``, std 0.001),
+    ``'normal'`` a normal of that std (RTFormer's ``k`` / ``v``, 0.02).
+    Every parameter is
     overwritten, so the result depends on ``generator`` alone; a parameter of
     no known kind raises."""
     done = set()
     for mod in module.modules():
+        raw = getattr(mod, 'raw_init', {})
         for name, p in mod.named_parameters(recurse=False):
-            if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)) \
+            if name in raw:
+                kind, std = raw[name]
+                if kind == 'truncated_normal':
+                    _truncated_normal_(p, std, generator)
+                elif kind == 'normal':
+                    _normal_(p, std, generator)
+                else:
+                    raise ValueError(f'unknown raw_init kind {kind!r}')
+            elif isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)) \
                     and name == 'bias':
                 p.zero_()
             elif isinstance(mod, nn.ConvTranspose2d):     # (in, out, k, k)
@@ -339,6 +367,9 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
             elif name == 'relative_position_bias_table':
                 p.copy_(torch.clamp(torch.randn(p.shape, generator=generator),
                                     -2.0, 2.0) * 0.02)
+            elif p.dim() == 4 and getattr(mod, 'lecun_init', False):
+                fan_in = p.shape[1] * p.shape[2] * p.shape[3]
+                _normal_(p, math.sqrt(1.0 / fan_in), generator)
             elif p.dim() == 4:       # conv kernels and raw depthwise kernels
                 fan_out = p.shape[0] * p.shape[2] * p.shape[3]
                 _normal_(p, math.sqrt(2.0 / fan_out), generator)

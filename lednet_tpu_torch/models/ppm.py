@@ -7,19 +7,22 @@ pre-activation conv of the input; branches 1..n-2 average-pool it (5/2/2,
 the last branch pools globally.  Each pooled branch is upsampled bilinearly
 (``align_corners=False``) and fused hierarchically,
 ``feats[i] = process{i-1}(up(branch_i) + feats[i-1])``; the output is
-``compression(concat(feats)) + shortcut(x)``.  Every conv runs bias-free in
-the order ``('norm', 'act', 'conv')`` with BatchNorm momentum 0.1 and ReLU,
-the JAX defaults that every caller keeps.
+``compression(concat(feats)) + shortcut(x)``.  Every conv runs in the
+order ``('norm', 'act', 'conv')`` with ReLU, normalized by ``norm_cfg``
+(BatchNorm momentum 0.1 by default; RTFormer passes its config's SyncBN)
+and bias-free unless ``conv_bias`` (SCTNet's ``DAPPM_head`` clone runs
+plain biased convs).
 
 ``PAPPM`` (:88, PIDNet-S) has the same branches but adds ``x0`` (branch 0)
 to each upsampled branch in parallel and runs the four sums, concatenated
 in scale order, through one 3x3 conv of ``num_scales - 1`` groups
 (``processes``), so that each group sees one scale; the output is
-``compression(concat(x0, processes(...))) + shortcut(x)``.
+``compression(concat(x0, processes(...))) + shortcut(x)``; only its
+``scale{i}`` convs take ``conv_bias``, as in the JAX package.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 import torch.nn as nn
@@ -34,27 +37,33 @@ _ACT = dict(type='ReLU')
 _POOLS = ((5, 2, 2), (9, 4, 4), (17, 8, 8))    # (kernel, stride, padding)
 
 
-def _conv(cin, cout, k, **kw):
-    return ConvModule(cin, cout, k, norm_cfg=_NORM, act_cfg=_ACT,
-                      order=_PRE_ACT, bias=False, **kw)
-
-
 class DAPPM(nn.Module):
+    tail_bias = True     # whether compression and shortcut take conv_bias
 
     def __init__(self, in_channels: int, branch_channels: int,
-                 out_channels: int, num_scales: int):
+                 out_channels: int, num_scales: int,
+                 norm_cfg: Optional[Dict] = None, conv_bias: bool = False):
         super().__init__()
         self.num_scales = num_scales
+        self.norm_cfg = norm_cfg or _NORM
         for i in range(num_scales):
-            self.add_module(f'scale{i}', _conv(in_channels, branch_channels, 1))
-        self._add_processes(branch_channels)
-        self.compression = _conv(branch_channels * num_scales, out_channels, 1)
-        self.shortcut = _conv(in_channels, out_channels, 1)
+            self.add_module(f'scale{i}', self._conv(in_channels,
+                                                    branch_channels, 1,
+                                                    conv_bias))
+        self._add_processes(branch_channels, conv_bias)
+        tail_bias = conv_bias and self.tail_bias
+        self.compression = self._conv(branch_channels * num_scales,
+                                      out_channels, 1, tail_bias)
+        self.shortcut = self._conv(in_channels, out_channels, 1, tail_bias)
 
-    def _add_processes(self, branch_channels: int):
+    def _conv(self, cin, cout, k, bias, **kw):
+        return ConvModule(cin, cout, k, norm_cfg=self.norm_cfg, act_cfg=_ACT,
+                          order=_PRE_ACT, bias=bias, **kw)
+
+    def _add_processes(self, branch_channels: int, conv_bias: bool):
         for i in range(self.num_scales - 1):
-            self.add_module(f'process{i}', _conv(branch_channels,
-                                                 branch_channels, 3, padding=1))
+            self.add_module(f'process{i}', self._conv(
+                branch_channels, branch_channels, 3, conv_bias, padding=1))
 
     def _branch(self, x, i):
         """Branch ``i`` (1..n-1) before its upsampling: pooled, then 1x1."""
@@ -75,11 +84,12 @@ class DAPPM(nn.Module):
 
 
 class PAPPM(DAPPM):
+    tail_bias = False
 
-    def _add_processes(self, branch_channels: int):
+    def _add_processes(self, branch_channels: int, conv_bias: bool):
         width = branch_channels * (self.num_scales - 1)
-        self.processes = _conv(width, width, 3, padding=1,
-                               groups=self.num_scales - 1)
+        self.processes = self._conv(width, width, 3, False, padding=1,
+                                    groups=self.num_scales - 1)
 
     def forward(self, x, impl: Optional[str] = None):
         """``impl`` is accepted for the backbones' call and unused."""

@@ -35,6 +35,21 @@ from lednet_tpu_torch.ops.resize import resize_bilinear
 from lednet_tpu_torch.registry import MODELS
 
 
+def build_segmentor(model_cfg) -> nn.Module:
+    """``MODELS.build`` of a config's ``model``, which must be a segmentor
+    (``loss`` and ``predict``).  DSNet's config builds a module with
+    neither, which the JAX package's ``init_model`` and ``Runner`` cannot
+    run either: it raises ``TypeError`` here."""
+    model = MODELS.build(dict(model_cfg))
+    missing = [m for m in ('loss', 'predict')
+               if not callable(getattr(model, m, None))]
+    if missing:
+        raise TypeError(f'{type(model).__name__} is not a segmentor: it has '
+                        f'no {" and no ".join(missing)}; build it with '
+                        'MODELS.build and call it as a module')
+    return model
+
+
 @MODELS.register_module()
 class EncoderDecoder(nn.Module):
 

@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels, and dispatch between a kernel and
 its plain PyTorch version.
 
-All of ``lednet_tpu_torch/csrc/*.cu`` is compiled by ONE plain ``nvcc`` call
-for ``sm_90a`` into one shared library with a plain C interface, loaded with
+Each of ``lednet_tpu_torch/csrc/*.cu`` is compiled by a plain ``nvcc -c``
+for ``sm_90a``, all of them started together, and one more ``nvcc`` links
+the objects into one shared library with a plain C interface, loaded with
 ``ctypes``.  PyTorch's headers are never included (``torch.utils.cpp_extension``
-spends minutes on them), so the build takes seconds.
+spends minutes on them), so the build takes the time of the slowest source.
 
 The library lands in ``lednet_tpu_torch/_build/<hash>/`` (listed in
 ``.gitignore``), keyed by a hash of the sources and the flags; it is written
@@ -33,8 +34,12 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / 'csrc'
 BUILD_ROOT = _PKG / '_build'
 LIB_NAME = 'liblednet_kernels.so'
-NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
-              '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+_ARCH = ('-gencode', 'arch=compute_90a,code=sm_90a')
+NVCC_FLAGS = (*_ARCH, '-std=c++17', '-O3', '-shared', '-Xcompiler', '-fPIC',
+              '-Xptxas', '-v')
+# one source to an object; the objects to the library
+COMPILE_FLAGS = tuple(f for f in NVCC_FLAGS if f != '-shared') + ('-c',)
+LINK_FLAGS = (*_ARCH, '-shared')
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signature of every entry point: argument types in order (restype is int).
@@ -81,17 +86,35 @@ def build() -> Path:
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f'{LIB_NAME}.tmp{os.getpid()}'
-    cmd = [_nvcc(), *NVCC_FLAGS, '-o', str(tmp),
-           *[str(s) for s in sorted(CSRC.glob('*.cu'))]]
+    tag = f'tmp{os.getpid()}'
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = (f'$ {" ".join(cmd)}\n# {time.perf_counter() - t0:.1f} s, '
-           f'rc={proc.returncode}\n{proc.stdout}{proc.stderr}')
+    compiles = []
+    for src in sorted(CSRC.glob('*.cu')):
+        cmd = [nvcc, *COMPILE_FLAGS, '-o', str(out_dir / f'{src.stem}.{tag}.o'),
+               str(src)]
+        compiles.append((cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    steps = [(cmd, proc.communicate()[0], proc.returncode)
+             for cmd, proc in compiles]
+    objs = [cmd[-2] for cmd, _, _ in steps]
+    tmp = out_dir / f'{LIB_NAME}.{tag}'
+    if all(rc == 0 for _, _, rc in steps):
+        cmd = [nvcc, *LINK_FLAGS, '-o', str(tmp), *objs]
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        steps.append((cmd, proc.stdout, proc.returncode))
+    rc = max(step[2] for step in steps)
+    log = (f'# {len(compiles)} sources compiled in parallel, then linked: '
+           f'{time.perf_counter() - t0:.1f} s, rc={rc}\n' +
+           ''.join(f'$ {" ".join(cmd)}\n# rc={code}\n{out}'
+                   for cmd, out, code in steps))
     (out_dir / 'build.log').write_text(log)
-    if proc.returncode != 0:
+    for obj in objs:
+        Path(obj).unlink(missing_ok=True)
+    if rc != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f'nvcc failed (rc={proc.returncode}):\n{log[-6000:]}')
+        raise RuntimeError(f'nvcc failed (rc={rc}):\n{log[-6000:]}')
     os.replace(tmp, lib)
     return lib
 

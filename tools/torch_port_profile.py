@@ -5,8 +5,8 @@
 
 Builds the flagship LED-Net (``configs/LED_Net/lednet_80k_cityscapes-1024x1024.py``,
 or the model of ``--config``: DDRNet, BiSeNetV1, PIDNet, STDC, BiSeNetV2,
-HRNet, SegNeXt, UNet, ICNet, Fast-SCNN, ERFNet, CGNet and LR-ASPP run
-kernel A alone and skip the kernel E readings
+HRNet, SegNeXt, UNet, ICNet, Fast-SCNN, ERFNet, CGNet, LR-ASPP, SCTNet,
+RTFormer, PSPNet and DeepLabV3+ run kernel A alone and skip the kernel E readings
 below) with seeded random weights through ``lednet_tpu_torch.apis.init_model``,
 and profiles bs=1 forwards (preprocess + ``predict``, or ``predict_slide``
 where the config's ``test_cfg`` says slide) of a ``--size`` square or an
@@ -21,7 +21,10 @@ norms (GroupNorm, LayerNorm), the rest; by the device kernels' names,
 :func:`kind_of`), the device time per forward of the Hamburger head's NMF
 (``nmf_ms``: the device time of the kernels launched inside a profiler
 range that this script puts around each call of ``ham_head._nmf``; 0 for
-other models and in a replayed graph, which runs no host code), the device
+other models and in a replayed graph, which runs no host code), that of
+SCTNet's and RTFormer's attention the same way (``attention_ms``: ranges
+around ``ConvolutionalAttention``, ``ExternalAttention`` and
+``CrossResolutionAttention``; its kernels count in ``by_kind`` too), the device
 time and launches per forward of each of the port's CUDA kernels by op
 (kernel D's reduce and fused launches; kernel E, which no model calls,
 reads 0), the top device kernels by time and the top aten ops by the device
@@ -90,6 +93,7 @@ import sys
 import time
 
 CONFIG = 'configs/LED_Net/lednet_80k_cityscapes-1024x1024.py'
+RANGES = ('nmf', 'attention')     # the profiler ranges main() puts around calls
 
 
 def _time_us(evt, names):
@@ -229,7 +233,7 @@ def profile_path(forward, impl, iters):
     # once; the host-side aten ops that launched them repeat it.  The NMF's
     # range shows on the device too, as a span: not a device op
     device = [e for e in events if e.device_type == DeviceType.CUDA
-              and e.key != 'nmf']
+              and e.key not in RANGES]
     busy_ms = sum(_self_device_us(e) for e in device) / 1e3 / iters
     n_ops = sum(e.count for e in device) / iters
     aten = [e for e in events if e.device_type == DeviceType.CPU
@@ -254,11 +258,12 @@ def profile_path(forward, impl, iters):
     by_kind = {'conv': 0.0, 'batch_norm': 0.0, 'norm': 0.0, 'rest': 0.0}
     for e in device:
         by_kind[kind_of(e.key)] += _self_device_us(e) / 1e3 / iters
-    nmf_ms = sum(_device_us(e) for e in events if e.key == 'nmf' and
-                 e.device_type == DeviceType.CPU) / 1e3 / iters
+    ranged = {f'{r}_ms': sum(_device_us(e) for e in events if e.key == r and
+                             e.device_type == DeviceType.CPU) / 1e3 / iters
+              for r in RANGES}
     return dict(impl=impl, wall_ms=wall_ms, device_busy_ms=busy_ms,
                 idle_share=max(0.0, 1.0 - busy_ms / wall_ms),
-                device_ops_per_forward=n_ops, by_kind=by_kind, nmf_ms=nmf_ms,
+                device_ops_per_forward=n_ops, by_kind=by_kind, **ranged,
                 port_kernels=port,
                 top_kernels=rows(device, _self_device_us),
                 top_aten_ops=rows(aten, _device_us),
@@ -535,13 +540,18 @@ def main() -> int:
                                                          args.val)
         print(json.dumps(report), flush=True)
         return 0
+    from lednet_tpu_torch.models.backbones import rtformer, sctnet
     from lednet_tpu_torch.models.decode_heads import ham_head
-    nmf = ham_head._nmf
 
-    def ranged_nmf(*a, **kw):
-        with torch.profiler.record_function('nmf'):
-            return nmf(*a, **kw)
-    ham_head._nmf = ranged_nmf
+    def ranged(fn, name):
+        def call(*a, **kw):
+            with torch.profiler.record_function(name):
+                return fn(*a, **kw)
+        return call
+    ham_head._nmf = ranged(ham_head._nmf, 'nmf')
+    for cls in (sctnet.ConvolutionalAttention, rtformer.ExternalAttention,
+                rtformer.CrossResolutionAttention):
+        cls.forward = ranged(cls.forward, 'attention')
     slide = model.test_cfg.get('mode') == 'slide'
     paths = [('cuda', eager_forward(model, x, 'cuda')),
              ('plain', eager_forward(model, x, 'plain'))]
@@ -561,7 +571,7 @@ def main() -> int:
               f"{r['device_busy_ms']:.3f} ms, idle share {r['idle_share']:.3f}, "
               f"{r['device_ops_per_forward']:.0f} device ops/forward; by kind "
               + ', '.join(f'{k} {ms:.3f} ms' for k, ms in r['by_kind'].items())
-              + f"; NMF {r['nmf_ms']:.3f} ms",
+              + f"; NMF {r['nmf_ms']:.3f} ms; attention {r['attention_ms']:.3f} ms",
               flush=True)
         print('  port_kernels:', flush=True)
         for op, k in r['port_kernels'].items():

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """The zoo phases of ``chip_smoke.py`` alone, on one NVIDIA GPU.
 
-    python3 tools/torch_port_zoo_smoke.py [--phase 10 | 11 | ... | 16 | 10 11 ...]
+    python3 tools/torch_port_zoo_smoke.py [--phase 10 | 11 | ... | 17 | 10 11 ...]
 
 Prints the card's name and power limit, builds the kernels, fabricates the
 zoo's Cityscapes tree (``chip_smoke.zoo_tree``) and runs
@@ -42,7 +42,12 @@ phase asked for (default 10):
   Fast-SCNN, ERFNet, CGNet and LR-ASPP MobileNetV3-L on the 1024x2048
   Cityscapes test frame (each also against its copy on the CPU at 256x512,
   each train step at its loader's 1024x1024 crops), then ICNet and CGNet
-  through the train and test CLIs.
+  through the train and test CLIs;
+- 17: ``chip_smoke.sct_rtformer_psp``: as 16 of SCTNet-B, RTFormer-Base,
+  PSPNet R50-D8 and DeepLabV3+ R50-D8 (RTFormer-Slim once), DSNet-S as
+  the module the JAX package runs (its forward on the card against its
+  CPU copy; ``init_model`` raising on its config), then RTFormer-Base and
+  DeepLabV3+ through the train and test CLIs.
 
 Exits non-zero if a phase fails or there is no GPU.
 """
@@ -59,7 +64,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument('--phase', nargs='+',
-                    choices=('10', '11', '12', '13', '14', '15', '16'),
+                    choices=('10', '11', '12', '13', '14', '15', '16', '17'),
                     default=['10'])
     args = ap.parse_args()
     import torch
@@ -94,7 +99,9 @@ def main() -> int:
               '15': ('15 datasets',
                      lambda tree: chip_smoke.datasets(card, tree)),
               '16': ('16 realtime',
-                     lambda tree: chip_smoke.realtime(card, tree))}
+                     lambda tree: chip_smoke.realtime(card, tree)),
+              '17': ('17 sctnet rtformer psp',
+                     lambda tree: chip_smoke.sct_rtformer_psp(card, tree))}
     try:
         with chip_smoke.zoo_tree() as tree:
             for key in args.phase:
