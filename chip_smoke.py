@@ -139,9 +139,10 @@ printing one flushed line with its seconds:
    ``inference_model`` under torch's default TF32 flags against the
    float32 module forms (TOL_MODEL, argmax >= 99.9%); ``make_eval_step``
    replayed against the eager kernel path (TOL_KERNEL, argmax 1) and both
-   timed like phase 7; kernel A's time at float32 output; DDRNet-23 (c=64)
-   once, eager and replayed; each config's train step at its batch (6, 4)
-   at 1024x1024, 5 timed steps after a warm-up, peak memory; one step at 2
+   timed (CUDA events, ZOO_TIMED calls after 2); kernel A's time at
+   float32 output; DDRNet-23 (c=64) once, eager and replayed; each
+   config's train step at its batch (6, 4) at 1024x1024, ZOO_TRAIN_STEPS
+   timed steps after a warm-up, peak memory; one step at 2
    x 256x256 on the card (cuDNN off) against the CPU's within phase 6's
    bounds in float64, and in float32 with the step's discrete decisions
    (OHEM's kept pixels, ReLU signs, max pool choices) pinned to the CPU
@@ -249,7 +250,7 @@ printing one flushed line with its seconds:
    full width and bs 1 on the Cityscapes test frame, 1024x2048 (A exact at
    float32 output, A once per forward and B-E never, the kernel path and
    TF32 defaults against module forms, replay against eager, both timed
-   over 50 calls after 5), the replayed graph and the eager kernel path on
+   as phase 10), the replayed graph and the eager kernel path on
    a CPU_FRAME_HW frame against the model copied to the CPU; each train
    step at the config's batch of its loader's 1024x1024 crops (its own
    ``crop_size`` reaches only the preprocessor); the card's step against
@@ -276,6 +277,25 @@ printing one flushed line with its seconds:
    launched, eager time); RTFormer-Base (its own schedule, batch 6) and
    DeepLabV3+ through the train and test CLIs on phase 10's tree, the
    test CLI equal to the step-20 val.
+18. cascade transformers: phase 16's checks of the cascade segmentor
+   (``CascadeEncoderDecoder``: OCRNet HR18, an FCN stage then ``OCRHead``;
+   PointRend R50, an FCN stage then ``PointHead``, whose subdivision,
+   its sort and ``scatter`` included, runs inside the replayed graph) and
+   SegFormer MiT-B0 (``CASCADE_MIT``; ``configs/{ocrnet,point_rend,
+   segformer}/``, unchanged) at full width and bs 1 on the 1024x2048
+   Cityscapes test frame, and of UPerNet Swin-T (``SWIN``,
+   ``configs/swin/``, unchanged) on an ADE20K test frame of 512x683 (the
+   test resize of a 640x480 photo), each against its CPU copy at
+   CPU_FRAME_HW (Swin at SWIN_CPU_HW, a width of 3 mod 4); each train
+   step at its config's batch of its loader's crops; the card's step
+   against the CPU's at PHASE18_CHECK, 4 x 128x128 (dropout in every
+   stage and drop path 0; SegFormer past its warm-up; in float32
+   PointHead's training points pinned with the other decisions; both
+   devices draw the same candidates from the head's own CPU generator);
+   OCRNet through the train and test CLIs on phase 10's tree (its val is
+   the cascade's last stage through ``Runner.val``) and Swin-T on phase
+   13's ADE20K tree (val frames resized to 512x683 and 768x512), the test
+   CLI equal to the step-20 val.
 
 It prints the card line and a ``{"kernels": [...]}`` line (``launches``:
 the wrappers' count in phase 4; ``device_launches``: the CUDA launches the
@@ -295,7 +315,9 @@ the same of phase 14; ``datasets_launches``, ``datasets_device_launches``,
 ``datasets_max_abs_err``: the same of phase 15; ``realtime_launches``,
 ``realtime_device_launches``, ``realtime_max_abs_err``: the same of phase
 16; ``sct_rtf_psp_launches``, ``sct_rtf_psp_device_launches``,
-``sct_rtf_psp_max_abs_err``: the same of phase 17; E's row also has
+``sct_rtf_psp_max_abs_err``: the same of phase 17;
+``cascade_transformers_launches``, ``cascade_transformers_device_launches``,
+``cascade_transformers_max_abs_err``: the same of phase 18; E's row also has
 ``device_ms`` and ``cudnn_composition_ms`` per call at the flagship set,
 and ``val_ms``, ``val_plain_ms``, ``val_bound_ms``, ``val_device_ms`` and
 ``val_cudnn_composition_ms`` at the val set, all measured in this run),
@@ -320,6 +342,12 @@ SEED = 0
 TOL_KERNEL = 1e-5         # float32 kernels against their plain versions
 TOL_MODEL = 1e-3          # whole logits, kernel path against module forms
 TRAIN_STEPS = 5           # timed train steps, after one warm-up step
+# the zoo phases' timing repeats (10-18), kept few so that the whole
+# script stays well inside its 1200 s: each model's forward timed over
+# ZOO_TIMED calls after 2, replayed and eager, and ZOO_TRAIN_STEPS train
+# steps after a warm-up
+ZOO_TIMED = 10
+ZOO_TRAIN_STEPS = 3
 TRAIN_BATCH = 6           # the flagship config's train batch
 # one train step on the card against the CPU, the bounds that
 # tests/test_train_parity.py holds lednet_tpu to torch
@@ -448,6 +476,20 @@ SCT_RTF_PSP_CLIS = ('RTFormer-Base', 'DeepLabV3+ R50-D8')
 # D8 trunk's 1/8 map is 16x16, every 1x1 bin still BatchNormed over 4
 R50_D8_CHECK = (4, 128)
 DSNET_CONFIG = 'configs/dsnet/dsnet-s_cityscapes-1024x1024.py'
+# phase 18: the cascade segmentor (OCRNet HR18, PointRend R50) and the first
+# transformers (SegFormer MiT-B0 on FRAME_HW; UPerNet Swin-T on an ADE20K
+# test frame, ADE_TEST_HW, as the test pipeline resizes a 640x480 photo)
+CASCADE_MIT = (
+    ('OCRNet HR18', 'configs/ocrnet/ocrnet_hr18_cityscapes-512x1024.py'),
+    ('PointRend R50', 'configs/point_rend/pointrend_r50_cityscapes-512x1024.py'),
+    ('SegFormer-B0', 'configs/segformer/segformer_mit-b0_cityscapes-1024x1024.py'))
+SWIN = (('UPerNet Swin-T', 'configs/swin/upernet_swin-t_ade20k-512x512.py'),)
+ADE_TEST_HW = (512, 683)
+# the card's eval step against the CPU copy's: Swin at a width of 3 mod 4,
+# where flax's 'SAME' patch padding pads one column after
+SWIN_CPU_HW = (128, 171)
+# the card's step against the CPU's, (batch, size): the 1/32 maps 4x4
+PHASE18_CHECK = (4, 128)
 BF16_U = 2.0 ** -8     # bfloat16's unit roundoff: the amp loss's bound, relative
 CE_LOSSES = [dict(type='CrossEntropyLoss', loss_weight=1.0),
              dict(type='CrossEntropyLoss', loss_weight=0.4)]
@@ -974,7 +1016,8 @@ def decisions(kept, flips=None, pin=False):
     """A train step's discrete decisions: the pixels each OHEM loss keeps,
     the sign of each ReLU's input, each max pool's choice, PIDHead's
     boundary gate (the pixels whose ``sigmoid(d) > 0.8`` keep their label in
-    its fourth loss) and the pixels each ``OHEMPixelSampler`` keeps.
+    its fourth loss), the pixels each ``OHEMPixelSampler`` keeps and the
+    candidates PointHead keeps as its training points (``top_uncertain``).
     Inside, with ``flips`` None, each is appended to ``kept`` in call
     order; else ``flips[kind]`` counts where the step decides otherwise
     than the next of ``kept``, and with ``pin`` the step follows
@@ -982,10 +1025,12 @@ def decisions(kept, flips=None, pin=False):
     import torch
     import torch.nn.functional as F
     from lednet_tpu_torch.models.decode_heads.pid_head import PIDHead
+    from lednet_tpu_torch.models.decode_heads.point_head import PointHead
     from lednet_tpu_torch.models.losses.cross_entropy import OhemCrossEntropy
     from lednet_tpu_torch.structures import OHEMPixelSampler
     threshold, relu, max_pool = OhemCrossEntropy.threshold, F.relu, F.max_pool2d
     boundary_gate, keep_mask = PIDHead.boundary_gate, OHEMPixelSampler.keep_mask
+    top_uncertain = PointHead.top_uncertain
     recorded = iter(list(kept))
 
     def decide(kind, own):
@@ -1019,8 +1064,19 @@ def decisions(kept, flips=None, pin=False):
 
     def sampled(self, seg_logits, seg_label):
         return decide('sampler', keep_mask(self, seg_logits, seg_label))
+
+    def points(self, uncertainty, k):
+        # the decision is the set of candidates kept; they go on in
+        # candidate order, not by uncertainty, so that the MLP's ReLU
+        # decisions line up point by point from one step to another
+        own = torch.zeros_like(uncertainty, dtype=torch.bool).scatter_(
+            1, top_uncertain(self, uncertainty, k), True)
+        chosen = decide('points', own)
+        return torch.topk(chosen.to(uncertainty.dtype), k, dim=1, sorted=False
+                          ).indices.sort(dim=1).values
     OhemCrossEntropy.threshold, F.relu, F.max_pool2d = ohem, rectify, pool
     PIDHead.boundary_gate, OHEMPixelSampler.keep_mask = gate, sampled
+    PointHead.top_uncertain = points
     try:
         yield
     finally:
@@ -1028,6 +1084,7 @@ def decisions(kept, flips=None, pin=False):
                                                             max_pool)
         PIDHead.boundary_gate, OHEMPixelSampler.keep_mask = (boundary_gate,
                                                              keep_mask)
+        PointHead.top_uncertain = top_uncertain
 
 
 def float32_bounds(cpu_loss, cpu_weights, cpu_stats):
@@ -1673,18 +1730,26 @@ def class_default(module_cfg, name):
 
 
 def without_dropout(cfg):
-    """cfg options that set dropout 0 in the decode head and every
-    auxiliary head where the config has some, the backbone's
+    """cfg options that set dropout 0 in the decode head (every stage of a
+    cascade) and every auxiliary head where the config has some, the
+    backbone's
     ``drop_path_rate`` 0 where it has stochastic depth and its
     ``dropout_ratio`` 0 where it drops units (ERFNet's blocks; two RNG
     streams cannot drop the same units or samples), and a note saying so
     ('' when none had any)."""
     aux = cfg.model.get('auxiliary_head') or []
     one_aux = not isinstance(aux, (list, tuple))      # a head, not a list
-    heads = [cfg.model.decode_head] + ([aux] if one_aux else list(aux))
+    decode = cfg.model.decode_head
+    cascade = isinstance(decode, (list, tuple))       # every stage's
+    heads = (list(decode) if cascade else [decode]) + (
+        [aux] if one_aux else list(aux))
     extra, notes = {}, []
     if any(h.get('dropout_ratio', 0.1) for h in heads):
-        extra['model.decode_head.dropout_ratio'] = 0.0
+        if cascade:
+            extra['model.decode_head'] = [dict(h, dropout_ratio=0.0)
+                                          for h in decode]
+        else:
+            extra['model.decode_head.dropout_ratio'] = 0.0
         if aux:
             extra['model.auxiliary_head'] = (
                 dict(aux, dropout_ratio=0.0) if one_aux else
@@ -1747,12 +1812,14 @@ def loader_crop(cfg):
 def timed_train(card, label, cfg, rng, gen):
     """The train step of ``cfg`` (a seeded model) at the config's batch and
     its loader's crop (:func:`loader_crop`) on the card, TF32 off: one
-    warm-up step and TRAIN_STEPS timed (CUDA events; every log finite),
+    warm-up step and ZOO_TRAIN_STEPS timed (CUDA events; every log finite),
     and peak memory."""
     import torch
     from lednet_tpu_torch.apis import init_model
     from lednet_tpu_torch.engine import (build_optimizer, create_train_state,
                                          make_train_step)
+    from lednet_tpu_torch.models.segmentors.cascade_encoder_decoder import \
+        predicting_head_cfg
     batch = cfg.train_dataloader.batch_size
     crop = loader_crop(cfg)
     edges = edge_width(cfg)
@@ -1762,12 +1829,12 @@ def timed_train(card, label, cfg, rng, gen):
     train = make_train_step(train_model, opt, train_model.data_preprocessor)
     state = create_train_state(train_model, opt, sched)
     t_imgs, t_lbl = train_batch(rng, batch, crop, edges,
-                                cfg.model.decode_head.num_classes)
+                                predicting_head_cfg(cfg.model)['num_classes'])
     t_imgs, t_lbl = t_imgs.cuda(), to_device(t_lbl, 'cuda')
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
     times = []
-    for i in range(1 + TRAIN_STEPS):
+    for i in range(1 + ZOO_TRAIN_STEPS):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -1780,11 +1847,11 @@ def timed_train(card, label, cfg, rng, gen):
             raise AssertionError(f'{label} step {state.step}: {vals}')
     say(f'  {label} step {state.step} logs: ' + ', '.join(
         f'{k} {v:.5f}' for k, v in vals.items()))
-    ms = sum(times[1:]) / TRAIN_STEPS
+    ms = sum(times[1:]) / ZOO_TRAIN_STEPS
     say(f'  {label} train step, bs {batch} at {crop[0]}x{crop[1]}'
         f'{" with edge maps" if edges else ""} (TF32 off): '
         f'{ms:.3f} ms/step ({batch * 1000 / ms:.2f} img/s) over '
-        f'{TRAIN_STEPS} steps after a warm-up; on {card}')
+        f'{ZOO_TRAIN_STEPS} steps after a warm-up; on {card}')
     say(f'  {label} train step peak memory allocated: '
         f'{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, of it '
         f'{held / 2**30:.3f} GiB allocated before the first step (this '
@@ -1813,6 +1880,8 @@ def zoo_models(card, models=ZOO, wide=ZOO_WIDE, frame_hw=(SIZE, SIZE),
     from lednet_tpu_torch.apis import inference_model, init_model
     from lednet_tpu_torch.config import Config
     from lednet_tpu_torch.engine import make_eval_step
+    from lednet_tpu_torch.models.segmentors.cascade_encoder_decoder import \
+        predicting_head_cfg
     from lednet_tpu_torch.ops import kernels
 
     gen = torch.Generator().manual_seed(SEED + 10)
@@ -1828,7 +1897,7 @@ def zoo_models(card, models=ZOO, wide=ZOO_WIDE, frame_hw=(SIZE, SIZE),
     for label, config in models:
         model = init_model(config, device='cuda', generator=gen)
         randomize_norms(model, gen)
-        classes = model.cfg.model.decode_head.num_classes
+        classes = predicting_head_cfg(model.cfg.model)['num_classes']
         pre = model.data_preprocessor
         mode = model.test_cfg.get('mode', 'whole')
         predict = model.predict_slide if mode == 'slide' else model.predict
@@ -1921,8 +1990,8 @@ def zoo_models(card, models=ZOO, wide=ZOO_WIDE, frame_hw=(SIZE, SIZE),
             check_logits(f'{label} replay vs eager kernel path ({mode})',
                          replayed, out)
             del replayed, out
-            replay_ms = cuda_ms(lambda: step(x_dev), reps=50, warmup=5)
-            eager_ms = cuda_ms(eager, reps=50, warmup=5)
+            replay_ms = cuda_ms(lambda: step(x_dev), reps=ZOO_TIMED, warmup=2)
+            eager_ms = cuda_ms(eager, reps=ZOO_TIMED, warmup=2)
         say(f'  {label} forward {shape} ({mode}): replayed graph '
             f'{replay_ms:.3f} ms ({1000 / replay_ms:.1f} img/s); on {card}')
         say(f'  {label} forward {shape} ({mode}): eager kernel path '
@@ -1978,7 +2047,7 @@ def zoo_models(card, models=ZOO, wide=ZOO_WIDE, frame_hw=(SIZE, SIZE),
     for label, config in models:
         cfg = Config.fromfile(config)
         edges = edge_width(cfg)
-        classes = cfg.model.decode_head.num_classes
+        classes = predicting_head_cfg(cfg.model)['num_classes']
         timed_train(card, label, cfg, rng, gen)
 
         extra, note = without_dropout(cfg)
@@ -2012,7 +2081,8 @@ def zoo_models(card, models=ZOO, wide=ZOO_WIDE, frame_hw=(SIZE, SIZE),
                                                    SEED + 11, dtype)
         cpu64 = runs['cpu', torch.float64]
         say(f'  {label} one step, {at}: of {len(kept)} calls that decide '
-            '(OHEM, ReLU, max pool, boundary gate, pixel sampler), elements '
+            '(OHEM, ReLU, max pool, boundary gate, pixel sampler, point '
+            'selection), elements '
             'decided otherwise than in the '
             'CPU float64 step: ' + '; '.join(
                 f'{which} {flips[key]}' for which, key in (
@@ -2484,7 +2554,7 @@ def dsnet_module(card):
                              not torch.isfinite(o).all() for o in outs):
         raise AssertionError(f'DSNet outputs {[tuple(o.shape) for o in outs]}')
     with torch.inference_mode():
-        eager_ms = cuda_ms(lambda: model(x), reps=50, warmup=5)
+        eager_ms = cuda_ms(lambda: model(x), reps=ZOO_TIMED, warmup=2)
     say(f'  DSNet-S module forward 1x3x{FRAME_HW[0]}x{FRAME_HW[1]} (aux_p, '
         f'main, aux_d): eager {eager_ms:.3f} ms ({1000 / eager_ms:.1f} '
         f'img/s); peak memory above what was held {peak:.3f} GiB; on {card}')
@@ -2524,6 +2594,34 @@ def sct_rtformer_psp(card, tmp):
     for label, config in SCT_RTF_PSP:
         if label in SCT_RTF_PSP_CLIS:
             zoo_entry_points(card, tmp, label, config)
+    return launches, device, max(a_err, more[2])
+
+
+def cascade_transformers(card, tmp):
+    """Phase 18: OCRNet HR18, PointRend R50 and SegFormer-B0 (CASCADE_MIT)
+    through :func:`zoo_models` on the Cityscapes test frame (1 x 1024 x
+    2048), each also against its copy on the CPU at CPU_FRAME_HW, and
+    UPerNet Swin-T (SWIN) on an ADE20K test frame of ADE_TEST_HW, against
+    its CPU copy at SWIN_CPU_HW; each train step against the CPU's at
+    PHASE18_CHECK (PointRend's point selection pinned in float32 with the
+    other decisions); then OCRNet through the CLIs on :func:`zoo_tree`'s
+    tree in ``tmp`` (the cascade through ``Runner.val``) and Swin-T on
+    phase 13's ADE20K tree (made here where phase 13 did not run); returns
+    what ``zoo_models`` does."""
+    from lednet_tpu_torch.datasets.synthetic import make_ade20k_tree
+    launches, device, a_err = zoo_models(
+        card, CASCADE_MIT, (), frame_hw=FRAME_HW, cpu_hw=CPU_FRAME_HW,
+        check=PHASE18_CHECK)
+    more = zoo_models(card, SWIN, (), frame_hw=ADE_TEST_HW, cpu_hw=SWIN_CPU_HW,
+                      check=PHASE18_CHECK)
+    launches = {n: c + more[0][n] for n, c in launches.items()}
+    device = {n: c + more[1][n] for n, c in device.items()}
+    zoo_entry_points(card, tmp, *CASCADE_MIT[0])
+    if not os.path.isdir(os.path.join(tmp, 'ade')):
+        make_ade20k_tree(os.path.join(tmp, 'ade'), n_train=ADE_TREE_TRAIN,
+                         n_val=ADE_TREE_VAL, sizes_hw=ADE_FRAMES_HW,
+                         seed=SEED + 13)
+    zoo_entry_points(card, tmp, *SWIN[0], tree='ade')
     return launches, device, max(a_err, more[2])
 
 
@@ -2928,6 +3026,8 @@ def main() -> int:
             rt_launches, rt_device, rt_a_err = realtime(card, tree)
         with phase('17 sctnet rtformer psp'):
             srp_launches, srp_device, srp_a_err = sct_rtformer_psp(card, tree)
+        with phase('18 cascade transformers'):
+            ct_launches, ct_device, ct_a_err = cascade_transformers(card, tree)
     for row in rows:
         row['entry_point_launches'] = entry_launches[row['name']]
         row['entry_point_device_launches'] = entry_device[row['name']]
@@ -2966,6 +3066,10 @@ def main() -> int:
         row['sct_rtf_psp_device_launches'] = srp_device[row['name']]
         row['sct_rtf_psp_max_abs_err'] = (srp_a_err if row['name'] ==
                                           'normalize_image' else None)
+        row['cascade_transformers_launches'] = ct_launches[row['name']]
+        row['cascade_transformers_device_launches'] = ct_device[row['name']]
+        row['cascade_transformers_max_abs_err'] = (
+            ct_a_err if row['name'] == 'normalize_image' else None)
 
     say(card)
     say(json.dumps({'kernels': rows}))

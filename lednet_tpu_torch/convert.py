@@ -14,9 +14,14 @@ The port's modules carry the flax module names, so the mapping is by path:
   which is ``ConvTranspose2d``'s weight flipped in both spatial axes, so it
   is flipped back and transposed (2, 3, 0, 1); a ``deconv`` in any other
   module raises;
-- the 2-D kernels of CGNet's context gate (``f_glo``'s ``fc1`` / ``fc2``,
-  flax ``Dense``: (in, out)) -> ``nn.Linear``'s (out, in) weight; any
-  other 2-D kernel raises;
+- the 2-D kernels of flax ``Dense`` layers ((in, out)) -> ``nn.Linear``'s
+  (out, in) weight, where the module is one: CGNet's context gate
+  (``f_glo``'s ``fc1`` / ``fc2``), MiT's ``q`` / ``kv`` / ``proj`` /
+  ``fc1`` / ``fc2``, Swin's ``s{i}_b{j}_{qkv,proj,fc1,fc2}`` and
+  ``merge{s}``; any other 2-D kernel raises;
+- the 3-D kernels of PointHead's 1-D convs ``fc{i}`` / ``fc_seg`` ((1, in,
+  out)) -> ``nn.Conv1d``'s (out, in, 1) weight, axes (2, 1, 0); any other
+  3-D kernel raises;
 - the raw banks, by an explicit rule: SCTNet's strip banks ``kv`` (7, 1,
   in, 64) and ``kv3`` (1, 7, in, 64) are HWIO kernels of the conv into the
   64 channels, and become its (64, in, kh, kw) weight by the kernel's
@@ -30,8 +35,9 @@ The port's modules carry the flax module names, so the mapping is by path:
 - PReLU ``alpha``, GETB ``relative_position_bias_table``, MSCAN's
   ``layer_scale_{1,2}`` and biases keep their names;
 - the segmentor's ``_backbone``/``_neck``/``_decode_head`` lose the
-  leading underscore, and its auxiliary heads ``_aux_heads_{i}`` become
-  ``aux_heads.{i}``;
+  leading underscore, its auxiliary heads ``_aux_heads_{i}`` become
+  ``aux_heads.{i}``, and a cascade's heads ``_heads_{i}`` become
+  ``decode_heads.{i}``;
 - the trunk that ``BiSeNetV1``, ``STDCContextPathNet`` and ``ICNet`` build
   inline, which flax names after its class (``ResNet_0``, ``ResNetV1c_0``,
   ``STDCNet_0``), is ``backbone``.
@@ -83,7 +89,17 @@ SCTHead's ``conv1`` / ``bn2`` / ``cls``, RTFormer's ``stem{1,2}`` /
 ``layer{3,4}__{i}`` / ``compression{3,4,5}`` / ``aff{1,2,3}`` /
 ``layer5_`` / ``layer5`` / ``spp`` (``SPASPP``: ``conv{i}`` /
 ``pooling`` / ``process{1,2,3}``) / ``up8`` / ``lastlayer`` /
-``seghead_{p,d}`` (``conv1`` / ``conv2``); a norm's
+``seghead_{p,d}`` (``conv1`` / ``conv2``), OCRHead's ``bottleneck`` /
+``object_context`` (``{query,key,value,out}_project{i}``) / ``project`` /
+``cls``, PointHead's ``fc{i}`` / ``fc_seg``, MiT's ``patch_embed{i}`` /
+``embed_norm{i}`` / ``s{i}_b{j}_{norm1,attn,norm2,ffn}`` (``q`` / ``sr`` /
+``sr_norm`` / ``kv`` / ``proj``; ``fc1`` / ``dw`` / ``fc2``) /
+``stage_norm{i}``, SegformerHead's ``conv{i}`` / ``fusion_conv`` / ``cls``,
+Swin's ``patch_embed`` / ``patch_norm`` / ``s{s}_b{b}_{norm1,qkv,proj,
+norm2,fc1,fc2}`` and its ``s{s}_b{b}_rel_bias`` table / ``out_norm{s}`` /
+``merge_norm{s}`` / ``merge{s}``, and UPerHead's ``ppm{s}`` /
+``psp_bottleneck`` / ``lateral{i}`` / ``fpn{i}`` / ``fpn_bottleneck`` /
+``cls``; a norm's
 module is ``bn``, ``gn`` or ``ln`` by its type.  Any other automatic flax name (``ClassName_{n}``)
 has no counterpart in the port and raises.
 
@@ -111,6 +127,7 @@ def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tupl
 _AUTO_NAME = re.compile(r'[A-Z][A-Za-z0-9]*_\d+')
 _TRUNK = re.compile(r'(ResNet(V1c)?|STDCNet)_0')
 _AUX_HEAD = re.compile(r'aux_heads_(\d+)')
+_CASCADE_HEAD = re.compile(r'heads_(\d+)')
 
 
 def _module_path(path: Tuple[str, ...]) -> List[str]:
@@ -118,8 +135,11 @@ def _module_path(path: Tuple[str, ...]) -> List[str]:
     out = []
     for part in (p.lstrip('_') for p in path):
         aux = _AUX_HEAD.fullmatch(part)
+        cascade = _CASCADE_HEAD.fullmatch(part)
         if aux:
             out += ['aux_heads', aux.group(1)]
+        elif cascade:
+            out += ['decode_heads', cascade.group(1)]
         elif _TRUNK.fullmatch(part):
             out.append('backbone')
         elif _AUTO_NAME.fullmatch(part):
@@ -130,7 +150,11 @@ def _module_path(path: Tuple[str, ...]) -> List[str]:
     return out
 
 
-_DENSE_MODULES = ('f_glo',)        # modules whose 2-D kernels are Dense's
+# modules whose 2-D kernels are Dense's: by the module's own name, or,
+# for CGNet's gate, by the module that holds it
+_DENSE = re.compile(r'q|kv|proj|fc[12]|s\d+_b\d+_(qkv|proj|fc[12])|merge\d+')
+_DENSE_MODULES = ('f_glo',)
+_CONV1D = re.compile(r'fc\d+|fc_seg')    # PointHead's 1-D convs
 # raw parameter banks: name -> (rank, axes to the port's layout or None)
 _RAW_BANKS = {'kv': (4, (3, 2, 0, 1)), 'kv3': (4, (3, 2, 0, 1)),
               'k': (3, None), 'v': (3, None)}
@@ -160,9 +184,12 @@ def _param_entry(path: Tuple[str, ...], value: np.ndarray,
     elif leaf == 'kernel' and value.ndim == 4 or leaf.startswith('spp_dw'):
         value = np.transpose(value, (3, 2, 0, 1))
         leaf = 'weight' if leaf == 'kernel' else leaf
-    elif leaf == 'kernel' and value.ndim == 2 and len(path) > 2 and \
-            path[-3] in _DENSE_MODULES:
+    elif leaf == 'kernel' and value.ndim == 2 and (
+            _DENSE.fullmatch(path[-2]) or
+            len(path) > 2 and path[-3] in _DENSE_MODULES):
         value, leaf = value.T, 'weight'
+    elif leaf == 'kernel' and value.ndim == 3 and _CONV1D.fullmatch(path[-2]):
+        value, leaf = np.transpose(value, (2, 1, 0)), 'weight'
     elif leaf == 'kernel':
         raise ValueError(f'unexpected {value.ndim}-D kernel at {where}')
     elif leaf == 'scale':

@@ -22,7 +22,10 @@ GPU (or the CPU, ``device='cpu'``):
   on the kernel path, A-D for LED-Net and A for the zoo; a slide crop
   larger than the padded image raises, as in the JAX package),
   crops and resizes the logits to each image's ``ori_shape``
-  (``postprocess_logits``) and feeds :class:`IoUMetric`.
+  (``postprocess_logits``) and feeds :class:`IoUMetric`.  A cascade
+  (OCRNet, PointRend) predicts with its last head, whose config ``val``
+  reads (the JAX package's ``Runner.val`` reads ``decode_head`` as a dict
+  and raises on a cascade's list).
   A test-time-augmented sample (the ``tta_pipeline``'s ``TestTimeAug``)
   runs each view alone through the same eval step, padded to the bucket;
   its logits are cropped, un-flipped and resized to the original frame, and
@@ -52,6 +55,8 @@ from lednet_tpu_torch.engine.optim import build_optimizer
 from lednet_tpu_torch.engine.state import (TrainState, create_train_state,
                                            make_eval_step, make_train_step)
 from lednet_tpu_torch.models.layers import init_weights
+from lednet_tpu_torch.models.segmentors.cascade_encoder_decoder import \
+    predicting_head_cfg
 from lednet_tpu_torch.models.segmentors.encoder_decoder import (
     build_segmentor, postprocess_logits)
 from lednet_tpu_torch.models.segmentors.seg_tta import merge_tta_probs
@@ -218,8 +223,7 @@ class Runner:
             raise NotImplementedError('the visualization hook (draw=True) is '
                                       'later work in the port (ROADMAP Queue 1 '
                                       'item 5)')
-        head = cfg.model.get('decode_head') or {}
-        if head.get('out_channels', 2) == 1:
+        if predicting_head_cfg(cfg.model).get('out_channels', 2) == 1:
             raise NotImplementedError('the single-logit binary head is later '
                                       'work in the port (ROADMAP Queue 1 item 6)')
         loader = build_dataloader(dict(cfg[loader_key]), seed=self.seed)

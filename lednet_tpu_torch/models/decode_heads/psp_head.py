@@ -40,7 +40,10 @@ class HeadBase(nn.Module):
     """The configuration, classifier, loss and prediction of a head whose
     forward gives one logit map: the selected input's width
     (``in_width``; the sum for ``'resize_concat'``), its norm and
-    activation (BatchNorm and ReLU by default), and ``cls``."""
+    activation (BatchNorm and ReLU by default), and ``cls``.  A head that
+    takes several levels (``takes_list``: UPerHead, SegformerHead) selects
+    them with ``'multiple_select'`` and no other transform."""
+    takes_list = False
 
     def __init__(self, in_channels: Union[int, Sequence[int]], channels: int,
                  num_classes: int, dropout_ratio: float = 0.1,
@@ -54,9 +57,15 @@ class HeadBase(nn.Module):
                  sampler: Optional[Dict] = None,
                  init_cfg: Optional[Dict] = None):
         super().__init__()
-        if input_transform == 'multiple_select':
+        if self.takes_list and input_transform != 'multiple_select':
+            raise NotImplementedError(
+                f'{type(self).__name__} with input_transform='
+                f'{input_transform!r}: the port selects its levels with '
+                "'multiple_select' only")
+        if input_transform == 'multiple_select' and not self.takes_list:
             raise ValueError(f"{type(self).__name__} convolves one map: "
                              "input_transform='multiple_select' gives it a list")
+        self.in_channels = in_channels
         self.in_width = sum(in_channels) if isinstance(
             in_channels, (list, tuple)) else in_channels
         self.channels = channels

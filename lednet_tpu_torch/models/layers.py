@@ -332,8 +332,10 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
     ``_SegHead.conv2``), and a module's raw parameters by its
     ``raw_init`` table, name -> (kind, std): ``'truncated_normal'`` draws
     a standard normal truncated to (-2, 2) times std (flax's
-    ``truncated_normal``: SCTNet's ``kv`` / ``kv3``, std 0.001),
-    ``'normal'`` a normal of that std (RTFormer's ``k`` / ``v``, 0.02).
+    ``truncated_normal``: SCTNet's ``kv`` / ``kv3``, std 0.001; Swin's
+    ``s{i}_b{j}_rel_bias`` tables, 0.02), ``'normal'`` a normal of that std
+    (RTFormer's ``k`` / ``v``, 0.02), and 1-D conv kernels (PointHead's
+    MLP, flax ``nn.Conv``) LeCun normal.
     Every parameter is
     overwritten, so the result depends on ``generator`` alone; a parameter of
     no known kind raises."""
@@ -349,9 +351,12 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
                     _normal_(p, std, generator)
                 else:
                     raise ValueError(f'unknown raw_init kind {kind!r}')
-            elif isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)) \
-                    and name == 'bias':
+            elif isinstance(mod, (nn.Conv1d, nn.Conv2d, nn.ConvTranspose2d,
+                                  nn.Linear)) and name == 'bias':
                 p.zero_()
+            elif isinstance(mod, nn.Conv1d):              # (out, in, k)
+                _normal_(p, math.sqrt(1.0 / (p.shape[1] * p.shape[2])),
+                         generator)
             elif isinstance(mod, nn.ConvTranspose2d):     # (in, out, k, k)
                 fan_in = p.shape[1] * p.shape[2] * p.shape[3]
                 gain = getattr(mod, 'init_gain', 1.0)

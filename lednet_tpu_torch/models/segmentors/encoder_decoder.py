@@ -65,13 +65,17 @@ class EncoderDecoder(nn.Module):
         self.test_cfg = dict(test_cfg or {})
         self.backbone = MODELS.build(dict(backbone))
         self.neck = MODELS.build(dict(neck)) if neck else None
-        self.decode_head = MODELS.build(dict(decode_head))
+        self.build_decode_head(decode_head)
         if auxiliary_head is None:
             auxiliary_head = []
         elif not isinstance(auxiliary_head, (list, tuple)):
             auxiliary_head = [auxiliary_head]
         self.aux_heads = nn.ModuleList(MODELS.build(dict(c))
                                        for c in auxiliary_head)
+
+    def build_decode_head(self, decode_head) -> None:
+        """``decode_head`` from its config (a cascade builds several)."""
+        self.decode_head = MODELS.build(dict(decode_head))
 
     def extract_feat(self, inputs: torch.Tensor, impl: Optional[str] = None):
         """inputs: (B, 3, H, W)."""
@@ -83,6 +87,21 @@ class EncoderDecoder(nn.Module):
     def forward(self, inputs: torch.Tensor, impl: Optional[str] = None):
         """'tensor' mode on (B, 3, H, W): the decode head's raw outputs."""
         return self.decode_head(self.extract_feat(inputs, impl))
+
+    def decode(self, feats):
+        """The decode head's outputs of ``feats`` that ``predict_by_feat``
+        takes (a cascade runs every stage)."""
+        return self.decode_head(feats, with_aux=False)
+
+    def aux_losses(self, feats, seg_label) -> Dict[str, torch.Tensor]:
+        """The auxiliary heads' losses, keyed ``aux.*`` (``aux_{i}.*`` with
+        several)."""
+        losses = {}
+        for i, head in enumerate(self.aux_heads):
+            prefix = f'aux_{i}' if len(self.aux_heads) > 1 else 'aux'
+            for k, v in head.loss_by_feat(head(feats), seg_label).items():
+                losses[f'{prefix}.{k}'] = v
+        return losses
 
     def loss(self, inputs: torch.Tensor, seg_label) -> Dict[str, torch.Tensor]:
         """Training losses of (B, H, W, 3) images against (B, H, W) labels (or
@@ -96,10 +115,7 @@ class EncoderDecoder(nn.Module):
         logits = self.decode_head(feats)
         losses = {f'decode.{k}': v for k, v in
                   self.decode_head.loss_by_feat(logits, seg_label).items()}
-        for i, head in enumerate(self.aux_heads):
-            prefix = f'aux_{i}' if len(self.aux_heads) > 1 else 'aux'
-            for k, v in head.loss_by_feat(head(feats), seg_label).items():
-                losses[f'{prefix}.{k}'] = v
+        losses.update(self.aux_losses(feats, seg_label))
         return losses
 
     def predict(self, inputs: torch.Tensor, impl: Optional[str] = None) -> torch.Tensor:
@@ -107,7 +123,7 @@ class EncoderDecoder(nn.Module):
         (padded) input resolution."""
         size = tuple(inputs.shape[1:3])
         feats = self.extract_feat(inputs.permute(0, 3, 1, 2), impl)
-        logits = self.decode_head(feats, with_aux=False)
+        logits = self.decode(feats)
         return self.decode_head.predict_by_feat(logits, size).permute(0, 2, 3, 1)
 
     def predict_slide(self, inputs: torch.Tensor,
@@ -120,7 +136,7 @@ class EncoderDecoder(nn.Module):
         starts = _slide_grid(H, W, crop, stride)
         crops = self.slide_crops(inputs.permute(0, 3, 1, 2), starts, crop)
         feats = self.extract_feat(crops, impl)
-        logits = self.decode_head(feats, with_aux=False)
+        logits = self.decode(feats)
         crop_logits = self.decode_head.predict_by_feat(logits, crop)
         out = self.slide_accumulate(crop_logits, starts, (H, W))
         return out.permute(0, 2, 3, 1)

@@ -156,13 +156,12 @@ def slide_parts(model, x, iters):
     starts = _slide_grid(H, W, crop, tuple(model.test_cfg['stride']))
     crops = model.slide_crops(y.permute(0, 3, 1, 2), starts, crop)
     feats = model.extract_feat(crops, 'cuda')
-    logits = model.decode_head.predict_by_feat(
-        model.decode_head(feats, with_aux=False), crop)
+    logits = model.decode_head.predict_by_feat(model.decode(feats), crop)
     parts = {
         'gather': lambda: model.slide_crops(y.permute(0, 3, 1, 2), starts, crop),
         'backbone': lambda: model.extract_feat(crops, 'cuda'),
         'head': lambda: model.decode_head.predict_by_feat(
-            model.decode_head(feats, with_aux=False), crop),
+            model.decode(feats), crop),
         'accumulate': lambda: model.slide_accumulate(logits, starts, (H, W))}
     out = dict(crops=len(starts))
     for name, part in parts.items():
@@ -189,6 +188,8 @@ def train_step(model):
     import chip_smoke
     from lednet_tpu_torch.engine import (build_optimizer, create_train_state,
                                          make_train_step)
+    from lednet_tpu_torch.models.segmentors.cascade_encoder_decoder import \
+        predicting_head_cfg
     cfg = model.cfg
     opt, sched = build_optimizer(model, cfg.optim_wrapper, cfg.param_scheduler)
     step = make_train_step(model, opt, model.data_preprocessor,
@@ -197,7 +198,7 @@ def train_step(model):
     imgs, lbl = chip_smoke.train_batch(
         np.random.default_rng(0), cfg.train_dataloader.batch_size,
         chip_smoke.loader_crop(cfg), chip_smoke.edge_width(cfg),
-        cfg.model.decode_head.num_classes)
+        predicting_head_cfg(cfg.model)['num_classes'])
     imgs, lbl = imgs.cuda(), chip_smoke.to_device(lbl, 'cuda')
 
     def run():

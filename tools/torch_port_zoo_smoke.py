@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """The zoo phases of ``chip_smoke.py`` alone, on one NVIDIA GPU.
 
-    python3 tools/torch_port_zoo_smoke.py [--phase 10 | 11 | ... | 17 | 10 11 ...]
+    python3 tools/torch_port_zoo_smoke.py [--phase 10 | 11 | ... | 18 | 10 11 ...]
 
 Prints the card's name and power limit, builds the kernels, fabricates the
 zoo's Cityscapes tree (``chip_smoke.zoo_tree``) and runs
@@ -47,7 +47,12 @@ phase asked for (default 10):
   PSPNet R50-D8 and DeepLabV3+ R50-D8 (RTFormer-Slim once), DSNet-S as
   the module the JAX package runs (its forward on the card against its
   CPU copy; ``init_model`` raising on its config), then RTFormer-Base and
-  DeepLabV3+ through the train and test CLIs.
+  DeepLabV3+ through the train and test CLIs;
+- 18: ``chip_smoke.cascade_transformers``: as 16 of OCRNet HR18 and
+  PointRend R50 (the cascade segmentor) and SegFormer-B0 on the 1024x2048
+  Cityscapes test frame, and UPerNet Swin-T on a 512x683 ADE20K test
+  frame (its CPU copy at 128x171), then OCRNet and Swin-T through the
+  train and test CLIs (Swin on a fabricated ADE20K tree).
 
 Exits non-zero if a phase fails or there is no GPU.
 """
@@ -64,7 +69,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument('--phase', nargs='+',
-                    choices=('10', '11', '12', '13', '14', '15', '16', '17'),
+                    choices=('10', '11', '12', '13', '14', '15', '16', '17',
+                             '18'),
                     default=['10'])
     args = ap.parse_args()
     import torch
@@ -101,7 +107,9 @@ def main() -> int:
               '16': ('16 realtime',
                      lambda tree: chip_smoke.realtime(card, tree)),
               '17': ('17 sctnet rtformer psp',
-                     lambda tree: chip_smoke.sct_rtformer_psp(card, tree))}
+                     lambda tree: chip_smoke.sct_rtformer_psp(card, tree)),
+              '18': ('18 cascade transformers',
+                     lambda tree: chip_smoke.cascade_transformers(card, tree))}
     try:
         with chip_smoke.zoo_tree() as tree:
             for key in args.phase:
