@@ -18,7 +18,13 @@ The port's modules carry the flax module names, so the mapping is by path:
   (out, in) weight, where the module is one: CGNet's context gate
   (``f_glo``'s ``fc1`` / ``fc2``), MiT's ``q`` / ``kv`` / ``proj`` /
   ``fc1`` / ``fc2``, Swin's ``s{i}_b{j}_{qkv,proj,fc1,fc2}`` and
-  ``merge{s}``; any other 2-D kernel raises;
+  ``merge{s}``, K-Net's ``dynamic_layer`` / ``input_layer`` /
+  ``input_gate`` / ``update_gate`` / ``fc_layer`` / ``attn_{q,k,v,proj}``
+  / ``ffn_fc{1,2}`` / ``mask_fc{i}`` / ``fc_mask``, MaskFormer's
+  ``{c,s}{q,k,v}`` / ``{c,s}proj`` / ``interm_embed`` / ``cls_embed`` /
+  ``mask_mlp{i}`` / ``mask_embed`` and the deformable attention's
+  ``sampling_offsets`` / ``attention_weights`` / ``value_proj{l}`` /
+  ``output_proj``; any other 2-D kernel raises;
 - the 3-D kernels of PointHead's 1-D convs ``fc{i}`` / ``fc_seg`` ((1, in,
   out)) -> ``nn.Conv1d``'s (out, in, 1) weight, axes (2, 1, 0); any other
   3-D kernel raises;
@@ -26,14 +32,17 @@ The port's modules carry the flax module names, so the mapping is by path:
   in, 64) and ``kv3`` (1, 7, in, 64) are HWIO kernels of the conv into the
   64 channels, and become its (64, in, kh, kw) weight by the kernel's
   (3, 2, 0, 1) transpose (``ConvolutionalAttention`` runs the conv back
-  through ``weight.transpose(0, 1)``); RTFormer's token banks ``k``
-  (heads, d, m) and ``v`` (heads, m, d) keep their layout; a bank of
-  another rank raises;
+  through ``weight.transpose(0, 1)``); K-Net's ``seg_kernel`` (1, 1, C,
+  N) is the 1x1 classifier's (N, C, 1, 1) weight by the same transpose;
+  RTFormer's token banks ``k`` (heads, d, m) and ``v`` (heads, m, d) keep
+  their layout; a bank of another rank raises;
 - BatchNorm ``scale``/``bias`` + ``mean``/``var`` -> ``weight``/``bias`` +
   ``running_mean``/``running_var`` (+ ``num_batches_tracked`` = 0); a
   LayerNorm's or GroupNorm's ``scale`` -> ``weight``;
 - PReLU ``alpha``, GETB ``relative_position_bias_table``, MSCAN's
-  ``layer_scale_{1,2}`` and biases keep their names;
+  ``layer_scale_{1,2}``, K-Net's ``seg_bias``, MaskFormer's
+  ``query_embed`` (1, Q, D), the deformable decoder's ``level_embed`` (L,
+  D) and biases keep their names and layouts;
 - the segmentor's ``_backbone``/``_neck``/``_decode_head`` lose the
   leading underscore, its auxiliary heads ``_aux_heads_{i}`` become
   ``aux_heads.{i}``, and a cascade's heads ``_heads_{i}`` become
@@ -99,7 +108,12 @@ Swin's ``patch_embed`` / ``patch_norm`` / ``s{s}_b{b}_{norm1,qkv,proj,
 norm2,fc1,fc2}`` and its ``s{s}_b{b}_rel_bias`` table / ``out_norm{s}`` /
 ``merge_norm{s}`` / ``merge{s}``, and UPerHead's ``ppm{s}`` /
 ``psp_bottleneck`` / ``lateral{i}`` / ``fpn{i}`` / ``fpn_bottleneck`` /
-``cls``; a norm's
+``cls``, IterativeDecodeHead's ``conv{i}`` / ``kernel_update_head{s}``
+(``kernel_update_conv`` with its ``*_norm*`` LayerNorms, ``attention_norm``,
+``ffn_norm``, ``mask_norm{i}``), MaskFormerHead's ``lateral{i}`` /
+``fpn{i}`` / ``mask_feat`` / ``dec{l}`` (``norm_{cross,self,ffn}``) /
+``dec_norm`` and its ``pixel_decoder`` (``input_proj{i}`` / ``enc{l}``
+with ``attn``, ``norm{1,2}`` / ``lateral`` / ``mask_feat``); a norm's
 module is ``bn``, ``gn`` or ``ln`` by its type.  Any other automatic flax name (``ClassName_{n}``)
 has no counterpart in the port and raises.
 
@@ -152,12 +166,19 @@ def _module_path(path: Tuple[str, ...]) -> List[str]:
 
 # modules whose 2-D kernels are Dense's: by the module's own name, or,
 # for CGNet's gate, by the module that holds it
-_DENSE = re.compile(r'q|kv|proj|fc[12]|s\d+_b\d+_(qkv|proj|fc[12])|merge\d+')
+_DENSE = re.compile(
+    r'q|kv|proj|fc[12]|s\d+_b\d+_(qkv|proj|fc[12])|merge\d+'
+    # K-Net's kernel update heads
+    r'|dynamic_layer|input_layer|input_gate|update_gate|fc_layer|attn_[qkv]'
+    r'|attn_proj|ffn_fc[12]|mask_fc\d+|fc_mask'
+    # MaskFormer's decoder and outputs, the deformable attention
+    r'|[cs][qkv]|[cs]proj|interm_embed|cls_embed|mask_mlp\d+|mask_embed'
+    r'|sampling_offsets|attention_weights|value_proj\d+|output_proj')
 _DENSE_MODULES = ('f_glo',)
 _CONV1D = re.compile(r'fc\d+|fc_seg')    # PointHead's 1-D convs
 # raw parameter banks: name -> (rank, axes to the port's layout or None)
 _RAW_BANKS = {'kv': (4, (3, 2, 0, 1)), 'kv3': (4, (3, 2, 0, 1)),
-              'k': (3, None), 'v': (3, None)}
+              'k': (3, None), 'v': (3, None), 'seg_kernel': (4, (3, 2, 0, 1))}
 
 
 def _param_entry(path: Tuple[str, ...], value: np.ndarray,

@@ -7,7 +7,8 @@ from lednet_tpu_torch.models.backbones import (bisenetv1, bisenetv2,  # noqa: F4
                                                resnet, rtformer, sctnet, stdc,
                                                swin, unet)
 from lednet_tpu_torch.models.decode_heads import (fcn_head, ham_head,  # noqa: F401
-                                                  led_head, lraspp_head,
+                                                  knet_head, led_head,
+                                                  lraspp_head, maskformer_head,
                                                   ocr_head, pid_head,
                                                   point_head, psp_head,
                                                   sct_head, segformer_head,

@@ -41,9 +41,12 @@ class HeadBase(nn.Module):
     forward gives one logit map: the selected input's width
     (``in_width``; the sum for ``'resize_concat'``), its norm and
     activation (BatchNorm and ReLU by default), and ``cls``.  A head that
-    takes several levels (``takes_list``: UPerHead, SegformerHead) selects
-    them with ``'multiple_select'`` and no other transform."""
+    takes several levels (``takes_list``: UPerHead, SegformerHead,
+    MaskFormerHead) selects them with ``'multiple_select'`` and no other
+    transform.  A head that classifies otherwise (``classifier`` False:
+    K-Net's kernels, MaskFormer's queries) has no ``cls``."""
     takes_list = False
+    classifier = True
 
     def __init__(self, in_channels: Union[int, Sequence[int]], channels: int,
                  num_classes: int, dropout_ratio: float = 0.1,
@@ -78,9 +81,9 @@ class HeadBase(nn.Module):
         self.losses = build_losses(loss_decode)
         self.sampler = (MODELS.build(dict(sampler)) if sampler is not None
                         else None)
-        self.cls = ClsSeg(channels, resolve_out_channels(num_classes,
-                                                         out_channels),
-                          dropout_ratio)
+        n_out = resolve_out_channels(num_classes, out_channels)
+        if self.classifier:
+            self.cls = ClsSeg(channels, n_out, dropout_ratio)
 
     def _conv(self, cin, cout, k, **kw):
         return ConvModule(cin, cout, k, norm_cfg=self.norm_cfg,

@@ -333,8 +333,11 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
     ``raw_init`` table, name -> (kind, std): ``'truncated_normal'`` draws
     a standard normal truncated to (-2, 2) times std (flax's
     ``truncated_normal``: SCTNet's ``kv`` / ``kv3``, std 0.001; Swin's
-    ``s{i}_b{j}_rel_bias`` tables, 0.02), ``'normal'`` a normal of that std
-    (RTFormer's ``k`` / ``v``, 0.02), and 1-D conv kernels (PointHead's
+    ``s{i}_b{j}_rel_bias`` tables, 0.02; MaskFormer's ``query_embed``,
+    0.02), ``'normal'`` a normal of that std
+    (RTFormer's ``k`` / ``v``, 0.02; Mask2Former's ``level_embed``,
+    1.0), ``'zeros'`` zeros (K-Net's ``seg_bias``, the deformable
+    attention's ``sampling_offsets`` weight), and 1-D conv kernels (PointHead's
     MLP, flax ``nn.Conv``) LeCun normal.
     Every parameter is
     overwritten, so the result depends on ``generator`` alone; a parameter of
@@ -349,6 +352,8 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
                     _truncated_normal_(p, std, generator)
                 elif kind == 'normal':
                     _normal_(p, std, generator)
+                elif kind == 'zeros':
+                    p.zero_()
                 else:
                     raise ValueError(f'unknown raw_init kind {kind!r}')
             elif isinstance(mod, (nn.Conv1d, nn.Conv2d, nn.ConvTranspose2d,

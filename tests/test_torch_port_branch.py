@@ -59,7 +59,7 @@ from lednet_tpu_torch.datasets.synthetic import branch_frame, make_branch_tree
 from lednet_tpu_torch.engine import build_optimizer, create_train_state, make_train_step
 from lednet_tpu_torch.engine.runner import Runner
 from test_torch_port_common import REPO, jax_variables, random_variables
-from test_torch_port_common import one_thread  # noqa: F401
+from test_torch_port_common import conv_depthwise, one_thread  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures('one_thread')
 
@@ -100,7 +100,7 @@ def branch_cfg(root, config_cls=Config, tta=False, **overrides):
 
 
 @pytest.mark.parametrize('tta', [False, True])
-def test_runner_test_matches_jax(small_tree, tmp_path, tta):
+def test_runner_test_matches_jax(small_tree, tmp_path, tta, conv_depthwise):
     import lednet_tpu
     from lednet_tpu.engine.runner import Runner as JRunner
     lednet_tpu.register_all_modules()
@@ -126,7 +126,7 @@ def test_runner_test_matches_jax(small_tree, tmp_path, tta):
         assert abs(got[key] - want[key]) <= METRIC_TOL, (key, got, want)
 
 
-def test_padded_branch_train_step_matches_jax(one_thread):
+def test_padded_branch_train_step_matches_jax(one_thread, conv_depthwise):
     import lednet_tpu
     lednet_tpu.register_all_modules()
     jcfg = JConfig.fromfile(BRANCH)

@@ -23,7 +23,7 @@ from lednet_tpu_torch.config import Config
 from lednet_tpu_torch.convert import save_npz_variables
 from test_torch_port_common import (FLAGSHIP, jax_variables, load_port, nchw,
                                     random_variables, rel_err)
-from test_torch_port_common import one_thread  # noqa: F401
+from test_torch_port_common import conv_depthwise, one_thread  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures('one_thread')
 
@@ -71,7 +71,7 @@ def _port_logits(model, imgs, impl=None):
 
 
 @pytest.mark.parametrize('shape', SHAPES)
-def test_predict_matches_jax(pair, shape):
+def test_predict_matches_jax(pair, shape, conv_depthwise):
     imgs = _images(shape, n=2)
     ref = pair['jax_logits'](imgs)
     out = _port_logits(pair['model'], imgs)

@@ -38,9 +38,9 @@ and holds them together:
 torch runs on one thread in every test here (``one_thread``): its CPU
 autograd aborts the process when it runs multi-threaded after the XLA CPU
 runtime has run, and six workers' threads oversubscribe the cores.  A
-segmentor's JAX ``predict``, which runs once, runs op by op, without
-``jax.jit``: XLA:CPU's whole-graph compile of a full-width model costs more
-CPU time than running it op by op once.
+segmentor's JAX ``predict``, which runs once, is jitted: in a fresh worker
+one whole-graph compile cost less than the forward op by op (the five
+configs 30.7 s against 62.5).
 """
 import jax
 import jax.numpy as jnp
@@ -396,9 +396,13 @@ def _segmentor_pair(config, seed):
     params, stats = loss_variables(jmodel, (1, 64, 64), seed=seed)
     variables = jax_variables(params, stats)
 
+    # one compile for the whole forward: at the tests' widths it costs less
+    # than the forward op by op in a fresh worker
+    jpredict = jax.jit(lambda v, x: jmodel.apply(v, x, method='predict'))
+
     def jax_logits(imgs):
         x, _, _ = jpre(jnp.asarray(imgs), None, training=False)
-        return np.asarray(jmodel.apply(variables, x, method='predict'))
+        return np.asarray(jpredict(variables, x))
     model = init_model(config, device='cpu')
     sd = flax_to_state_dict(params, stats)
     assert set(sd) == set(model.state_dict())

@@ -38,9 +38,10 @@ and holds them together:
 torch runs on one thread in every test here (``one_thread``): its CPU
 autograd aborts the process when it runs multi-threaded after the XLA CPU
 runtime has run, and six workers' threads oversubscribe the cores.  A JAX
-reference that runs once runs op by op, without ``jax.jit`` (the
-``predict`` of each config); the two train steps are the JAX package's
-jitted step.
+brick's reference runs op by op, without ``jax.jit``; each config's
+``predict`` is jitted (one compile cost less than the forward op by op in
+a fresh worker: 19.9 s against 64.8 for the five); the two train steps
+are the JAX package's jitted step.
 """
 import jax
 import jax.numpy as jnp
@@ -269,8 +270,10 @@ def test_segmentor_predict_matches_jax(name):
     imgs = np.random.default_rng(31).integers(0, 256, (2,) + shape + (3,),
                                               dtype=np.uint8)
     x, _, _ = jpre(jnp.asarray(imgs), None, training=False)
-    ref = np.asarray(jmodel.apply(jax_variables(params, stats), x,
-                                  method='predict'))
+    # one compile: at these widths it costs less than the forward op by op
+    # in a fresh worker
+    ref = np.asarray(jax.jit(lambda v, x: jmodel.apply(v, x, method='predict'))(
+        jax_variables(params, stats), x))
     with torch.no_grad():
         px, _, _ = model.data_preprocessor(torch.from_numpy(imgs))
         assert px.dtype == torch.float32

@@ -45,7 +45,7 @@ from lednet_tpu_torch.engine.checkpoint import find_latest_checkpoint
 from lednet_tpu_torch.engine.runner import Runner
 from test_torch_port_common import (FLAGSHIP, REPO, jax_variables,
                                     random_variables)
-from test_torch_port_common import one_thread  # noqa: F401
+from test_torch_port_common import conv_depthwise, one_thread  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures('one_thread')
 
@@ -241,7 +241,7 @@ def test_unported_options_raise(tree, tmp_path):
             runner.val()
 
 
-def test_val_matches_jax_runner(tree, tmp_path):
+def test_val_matches_jax_runner(tree, tmp_path, conv_depthwise):
     import lednet_tpu
     from lednet_tpu.engine.runner import Runner as JRunner
     from lednet_tpu.engine.state import TrainState as JTrainState

@@ -52,7 +52,7 @@ from lednet_tpu_torch.models.losses import cross_entropy as ce
 from lednet_tpu_torch.registry import MODELS
 from test_torch_port_common import (FLAGSHIP, REPO, jax_variables,
                                     random_variables, rel_err)
-from test_torch_port_common import one_thread  # noqa: F401
+from test_torch_port_common import conv_depthwise, one_thread  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures('one_thread')
 
@@ -411,7 +411,7 @@ def _port_training(cfg, state_dict):
 
 
 @pytest.mark.parametrize('losses', ['ohem', 'ce'])
-def test_train_step_matches_jax(losses, one_thread):
+def test_train_step_matches_jax(losses, one_thread, conv_depthwise):
     """One SGD + poly step of the flagship config (cut to SMALL) in both
     packages from the same weights: the config's OHEM losses, and
     ``CrossEntropyLoss`` in their place."""

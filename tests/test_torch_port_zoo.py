@@ -39,9 +39,9 @@ and holds them together:
 torch runs on one thread in every test here (``one_thread``): its CPU
 autograd aborts the process when it runs multi-threaded after the XLA CPU
 runtime has run, and six workers' threads oversubscribe the cores.  A
-segmentor's JAX ``predict``, which runs once, runs op by op, without
-``jax.jit``: XLA:CPU's whole-graph compile of a full-width model costs more
-CPU time than running it op by op once.
+segmentor's JAX ``predict``, which runs once, is jitted: in a fresh worker
+one whole-graph compile cost less than the forward op by op (the four
+configs 12.9 s against 32.7).
 """
 import jax
 import jax.numpy as jnp
@@ -375,9 +375,13 @@ def _segmentor_pair(config, shape, seed, extra=()):
                                    seed=seed)
     variables = jax_variables(params, stats)
 
+    # one compile for the whole forward: at the tests' widths it costs less
+    # than the forward op by op in a fresh worker
+    jpredict = jax.jit(lambda v, x: jmodel.apply(v, x, method='predict'))
+
     def jax_logits(imgs):
         x, _, _ = jpre(jnp.asarray(imgs), None, training=False)
-        return np.asarray(jmodel.apply(variables, x, method='predict'))
+        return np.asarray(jpredict(variables, x))
     cfg = Config.fromfile(config)
     cfg.merge_from_dict(dict(extra))
     model = init_model(cfg, device='cpu')

@@ -2,11 +2,13 @@
 """Where the time of the PyTorch port's forward goes, on one GPU.
 
     python3 tools/torch_port_profile.py [--size 1024 | --hw H W] [--iters 20] [--config CFG]
+        [--cfg-options KEY=VALUE ...]
 
 Builds the flagship LED-Net (``configs/LED_Net/lednet_80k_cityscapes-1024x1024.py``,
 or the model of ``--config``: DDRNet, BiSeNetV1, PIDNet, STDC, BiSeNetV2,
 HRNet, SegNeXt, UNet, ICNet, Fast-SCNN, ERFNet, CGNet, LR-ASPP, SCTNet,
-RTFormer, PSPNet and DeepLabV3+ run kernel A alone and skip the kernel E readings
+RTFormer, PSPNet, DeepLabV3+, OCRNet, PointRend, SegFormer, Swin, K-Net
+and Mask2Former run kernel A alone and skip the kernel E readings
 below) with seeded random weights through ``lednet_tpu_torch.apis.init_model``,
 and profiles bs=1 forwards (preprocess + ``predict``, or ``predict_slide``
 where the config's ``test_cfg`` says slide) of a ``--size`` square or an
@@ -24,7 +26,13 @@ range that this script puts around each call of ``ham_head._nmf``; 0 for
 other models and in a replayed graph, which runs no host code), that of
 SCTNet's and RTFormer's attention the same way (``attention_ms``: ranges
 around ``ConvolutionalAttention``, ``ExternalAttention`` and
-``CrossResolutionAttention``; its kernels count in ``by_kind`` too), the device
+``CrossResolutionAttention``; its kernels count in ``by_kind`` too), and
+of K-Net's and MaskFormer's heads (``kernel_update_ms``: each
+``KernelUpdateHead`` stage; ``pixel_decoder_ms``: MaskFormer's pixel
+decoder, FPN or deformable; ``transformer_decoder_ms``: its decoder
+layers; ``matching_ms``: the Hungarian assignment, a host round trip, in
+a ``--train`` step; each also as ``*_host_ms``, the host time inside the
+range), the device
 time and launches per forward of each of the port's CUDA kernels by op
 (kernel D's reduce and fused launches; kernel E, which no model calls,
 reads 0), the top device kernels by time and the top aten ops by the device
@@ -61,6 +69,11 @@ which for STDC and the real-time zoo is larger than the preprocessor's
 where the pipeline has ``GenerateEdge``), ``--iters`` steps after two, with
 the same readings per step.
 
+    python3 tools/torch_port_profile.py --config CFG --hw H W --macs
+
+counts the multiply-adds of one forward's convs and Linear layers on the
+CPU (no GPU needed) and prints them as one JSON line.
+
     python3 tools/torch_port_profile.py --pyramid [--val]
 
 reads kernel E alone, without the forward profiles; ``--val`` (also with
@@ -93,7 +106,9 @@ import sys
 import time
 
 CONFIG = 'configs/LED_Net/lednet_80k_cityscapes-1024x1024.py'
-RANGES = ('nmf', 'attention')     # the profiler ranges main() puts around calls
+# the profiler ranges main() puts around calls
+RANGES = ('nmf', 'attention', 'kernel_update', 'pixel_decoder',
+          'transformer_decoder', 'matching')
 
 
 def _time_us(evt, names):
@@ -262,6 +277,10 @@ def profile_path(forward, impl, iters):
     ranged = {f'{r}_ms': sum(_device_us(e) for e in events if e.key == r and
                              e.device_type == DeviceType.CPU) / 1e3 / iters
               for r in RANGES}
+    ranged.update({f'{r}_host_ms': sum(e.cpu_time_total for e in events
+                                       if e.key == r and
+                                       e.device_type == DeviceType.CPU)
+                   / 1e3 / iters for r in RANGES})
     return dict(impl=impl, wall_ms=wall_ms, device_busy_ms=busy_ms,
                 idle_share=max(0.0, 1.0 - busy_ms / wall_ms),
                 device_ops_per_forward=n_ops, by_kind=by_kind, **ranged,
@@ -470,11 +489,51 @@ def sesp_sweep(model, x):
     return sites
 
 
+def count_macs(args) -> int:
+    """``--macs``: the multiply-adds of one bs-1 forward of ``--hw`` (or
+    ``--size``) on the CPU, by forward hooks on every ``nn.Conv2d`` (output
+    elements x in / groups x kh x kw) and ``nn.Linear`` (output elements x
+    in); einsums and matmuls outside them are not counted."""
+    import torch
+    import torch.nn as nn
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    from lednet_tpu_torch.apis import init_model
+    model = init_model(args.config, device='cpu',
+                       cfg_options=dict(kv.split('=', 1) for kv in args.cfg_options))
+    macs = {'conv': 0, 'linear': 0}
+
+    def conv(mod, _, out):
+        k = mod.weight.shape
+        macs['conv'] += out.numel() * k[1] * k[2] * k[3]
+
+    def linear(mod, _, out):
+        macs['linear'] += out.numel() * mod.in_features
+    for mod in model.modules():
+        if isinstance(mod, nn.Conv2d):
+            mod.register_forward_hook(conv)
+        elif isinstance(mod, nn.Linear):
+            mod.register_forward_hook(linear)
+    hw = tuple(args.hw or (args.size, args.size))
+    with torch.inference_mode():
+        x, _, _ = model.data_preprocessor(torch.zeros((1,) + hw + (3,),
+                                                      dtype=torch.uint8))
+        model.predict(x)
+    print(json.dumps(dict(config=args.config, hw=hw, cfg_options=args.cfg_options,
+                          gmac={k: v / 1e9 for k, v in macs.items()})), flush=True)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument('--config', default=CONFIG,
                     help='the model to profile (default: the flagship LED-Net)')
+    ap.add_argument('--cfg-options', nargs='+', default=[],
+                    help='KEY=VALUE overrides of the config, as the CLIs take '
+                         "them (e.g. model.decode_head.pixel_decoder=msdeform)")
+    ap.add_argument('--macs', action='store_true',
+                    help='count the forward\'s multiply-adds on the CPU and '
+                         'exit (no GPU needed)')
     ap.add_argument('--size', type=int, default=1024)
     ap.add_argument('--hw', type=int, nargs=2, metavar=('H', 'W'),
                     help='the frame (default: --size x --size)')
@@ -503,6 +562,8 @@ def main() -> int:
     args = ap.parse_args()
     import numpy as np
     import torch
+    if args.macs:
+        return count_macs(args)
     if not torch.cuda.is_available():
         print('torch_port_profile: CUDA is not available', file=sys.stderr)
         return 2
@@ -517,7 +578,8 @@ def main() -> int:
     print(card, flush=True)
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     model = init_model(os.path.join(repo, args.config), device='cuda',
-                       generator=torch.Generator().manual_seed(0))
+                       generator=torch.Generator().manual_seed(0),
+                       cfg_options=dict(kv.split('=', 1) for kv in args.cfg_options))
     hw = tuple(args.hw or (args.size, args.size))
     img = np.random.default_rng(0).integers(0, 256, (1,) + hw + (3,),
                                             dtype=np.uint8)
@@ -542,7 +604,8 @@ def main() -> int:
         print(json.dumps(report), flush=True)
         return 0
     from lednet_tpu_torch.models.backbones import rtformer, sctnet
-    from lednet_tpu_torch.models.decode_heads import ham_head
+    from lednet_tpu_torch.models.decode_heads import (ham_head, knet_head,
+                                                      maskformer_head)
 
     def ranged(fn, name):
         def call(*a, **kw):
@@ -553,6 +616,13 @@ def main() -> int:
     for cls in (sctnet.ConvolutionalAttention, rtformer.ExternalAttention,
                 rtformer.CrossResolutionAttention):
         cls.forward = ranged(cls.forward, 'attention')
+    knet_head.KernelUpdateHead.forward = ranged(
+        knet_head.KernelUpdateHead.forward, 'kernel_update')
+    mf = maskformer_head.MaskFormerHead
+    mf.pixel_features = ranged(mf.pixel_features, 'pixel_decoder')
+    mf.assign = ranged(mf.assign, 'matching')
+    maskformer_head._DecoderLayer.forward = ranged(
+        maskformer_head._DecoderLayer.forward, 'transformer_decoder')
     slide = model.test_cfg.get('mode') == 'slide'
     paths = [('cuda', eager_forward(model, x, 'cuda')),
              ('plain', eager_forward(model, x, 'plain'))]
@@ -572,7 +642,7 @@ def main() -> int:
               f"{r['device_busy_ms']:.3f} ms, idle share {r['idle_share']:.3f}, "
               f"{r['device_ops_per_forward']:.0f} device ops/forward; by kind "
               + ', '.join(f'{k} {ms:.3f} ms' for k, ms in r['by_kind'].items())
-              + f"; NMF {r['nmf_ms']:.3f} ms; attention {r['attention_ms']:.3f} ms",
+              + '; ' + ', '.join(f"{n} {r[n + '_ms']:.3f} ms" for n in RANGES),
               flush=True)
         print('  port_kernels:', flush=True)
         for op, k in r['port_kernels'].items():

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """The zoo phases of ``chip_smoke.py`` alone, on one NVIDIA GPU.
 
-    python3 tools/torch_port_zoo_smoke.py [--phase 10 | 11 | ... | 18 | 10 11 ...]
+    python3 tools/torch_port_zoo_smoke.py [--phase 10 | 11 | ... | 19 | 10 11 ...]
 
 Prints the card's name and power limit, builds the kernels, fabricates the
 zoo's Cityscapes tree (``chip_smoke.zoo_tree``) and runs
@@ -52,7 +52,13 @@ phase asked for (default 10):
   PointRend R50 (the cascade segmentor) and SegFormer-B0 on the 1024x2048
   Cityscapes test frame, and UPerNet Swin-T on a 512x683 ADE20K test
   frame (its CPU copy at 128x171), then OCRNet and Swin-T through the
-  train and test CLIs (Swin on a fabricated ADE20K tree).
+  train and test CLIs (Swin on a fabricated ADE20K tree);
+- 19: ``chip_smoke.knet_mask2former``: as 16 of K-Net s3 R50-D8 and
+  Mask2Former R50 on the 1024x2048 Cityscapes test frame (the float32
+  card-against-CPU step with the heads' hard masks, attention masks,
+  Hungarian assignment and sampled points pinned), one Mask2Former
+  forward with the deformable pixel decoder, then both through the train
+  and test CLIs.
 
 Exits non-zero if a phase fails or there is no GPU.
 """
@@ -70,7 +76,7 @@ def main() -> int:
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument('--phase', nargs='+',
                     choices=('10', '11', '12', '13', '14', '15', '16', '17',
-                             '18'),
+                             '18', '19'),
                     default=['10'])
     args = ap.parse_args()
     import torch
@@ -109,7 +115,9 @@ def main() -> int:
               '17': ('17 sctnet rtformer psp',
                      lambda tree: chip_smoke.sct_rtformer_psp(card, tree)),
               '18': ('18 cascade transformers',
-                     lambda tree: chip_smoke.cascade_transformers(card, tree))}
+                     lambda tree: chip_smoke.cascade_transformers(card, tree)),
+              '19': ('19 knet mask2former',
+                     lambda tree: chip_smoke.knet_mask2former(card, tree))}
     try:
         with chip_smoke.zoo_tree() as tree:
             for key in args.phase:
