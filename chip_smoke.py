@@ -153,7 +153,7 @@ printing one flushed line with its seconds:
    elements each float32 step decides otherwise, unpinned, counted),
    BiSeNetV1 with dropout 0 in every head for this comparison only (two
    RNG streams cannot drop the same units); DDRNet-23-slim through
-   ``tools/torch_port_train.py`` (20 steps, one val) on a tree of 6 + 2
+   ``tools/torch_port_train.py`` (``ZOO_ITERS`` steps, one val) on a tree of 6 + 2
    2048x1024 frames, its iteration time and loader wait from the log, and
    ``tools/torch_port_test.py`` on ``iter_20.pth`` equal to that val (in
    every phase each CLI's ``main`` runs in this process, under torch's
@@ -215,7 +215,7 @@ printing one flushed line with its seconds:
    ``inference_model`` on a 500x375 photo raising as the JAX package does
    (resized to 390x520, padded to 416 rows < the 480 crop); UNet through
    the train and test CLIs on a fabricated DRIVE tree (``DRIVE_TREE_*``
-   frames of 584x565), the test CLI equal to the step-20 val, then once
+   frames of 584x565), the test CLI equal to the last step's val, then once
    more with ``--tta`` (the ``tta_pipeline`` of
    ``configs/_base_/datasets/drive.py``, passed as a cfg option: the UNet
    config has none), mDice printed; HRNet-W18 on
@@ -240,7 +240,7 @@ printing one flushed line with its seconds:
    aug (a ``ConcatDataset`` of the train and aug lists, ``Pad`` to
    512x512; a 21-class head under the 2-class ``PascalVOCDataset`` meta,
    as in the JAX package) and BiSeNetV1 R-50 on COCO-Stuff through the
-   train and test CLIs, the test CLI equal to the step-20 val, and
+   train and test CLIs, the test CLI equal to the last step's val, and
    HRNet-W18-Small on iSAID (bs 4 of 896x896 crops) through the train
    CLI with its val, each with its iteration time and loader wait.
 16. realtime: phase 10's checks of the real-time Cityscapes zoo's next
@@ -254,12 +254,12 @@ printing one flushed line with its seconds:
    a CPU_FRAME_HW frame against the model copied to the CPU; each train
    step at the config's batch of its loader's 1024x1024 crops (its own
    ``crop_size`` reaches only the preprocessor); the card's step against
-   the CPU's at REALTIME_CHECK, 4 x 256x256 (float64; float32 with ReLU
+   the CPU's at REALTIME_CHECK, 4 x 128x128 (float64; float32 with ReLU
    signs and max pool choices pinned; ERFNet's backbone dropout 0 too);
    ICNet (the neck and
    both auxiliary heads) and CGNet (class-weighted CE, Adam) through the
    train and test CLIs on phase 10's tree, the test CLI equal to the
-   step-20 val.
+   last step's val.
 17. sctnet rtformer psp: phase 16's checks of SCTNet-B (``SCTHead``, OHEM),
    RTFormer-Base (external and cross-resolution attention, OHEM on its
    decode and auxiliary heads), PSPNet R50-D8 (``PSPHead``) and
@@ -268,7 +268,7 @@ printing one flushed line with its seconds:
    unchanged) at full width and bs 1 on the 1024x2048 Cityscapes test
    frame, RTFormer-Slim one replayed forward against eager; each train
    step at its config's batch and its loader's 1024x1024 crops; the
-   card's step against the CPU's at REALTIME_CHECK, 4 x 256x256, and the
+   card's step against the CPU's at REALTIME_CHECK, 4 x 128x128, and the
    R50-D8 pair's at R50_D8_CHECK, 4 x 128x128 (SCTNet's drop path and the
    heads' dropout 0); DSNet-S (``DSNET_CONFIG``) as the module the JAX
    package runs (``dsnet_module``: ``init_model`` raises on its config;
@@ -276,7 +276,7 @@ printing one flushed line with its seconds:
    against the module copied to the CPU at CPU_FRAME_HW, no kernel
    launched, eager time); RTFormer-Base (its own schedule, batch 6) and
    DeepLabV3+ through the train and test CLIs on phase 10's tree, the
-   test CLI equal to the step-20 val.
+   test CLI equal to the last step's val.
 18. cascade transformers: phase 16's checks of the cascade segmentor
    (``CascadeEncoderDecoder``: OCRNet HR18, an FCN stage then ``OCRHead``;
    PointRend R50, an FCN stage then ``PointHead``, whose subdivision,
@@ -295,7 +295,7 @@ printing one flushed line with its seconds:
    OCRNet through the train and test CLIs on phase 10's tree (its val is
    the cascade's last stage through ``Runner.val``) and Swin-T on phase
    13's ADE20K tree (val frames resized to 512x683 and 768x512), the test
-   CLI equal to the step-20 val.
+   CLI equal to the last step's val.
 19. knet mask2former: phase 16's checks of the first mask-classification
    heads, K-Net s3 R50-D8 (``IterativeDecodeHead``: an FCN kernel-generate
    head and three kernel-update stages) and Mask2Former R50
@@ -312,7 +312,24 @@ printing one flushed line with its seconds:
    one Mask2Former forward with the deformable pixel decoder
    (``MSDEFORM``, through the config options), replayed and eager and
    against its CPU copy; both through the train and test CLIs on phase
-   10's tree, each test CLI equal to its step-20 val.
+   10's tree, each test CLI equal to its last step's val.
+20. san: SAN ViT-B16 (``MultimodalEncoderDecoder``: CLIP's ViT on the
+   half-size image, the CLIP text tower on 19 'vild' templates x 19
+   classes, ``SideAdapterCLIPHead``; ``configs/san/``, unchanged, run with
+   ``SAN_OPTIONS``: ``out_origin=True`` through the config options) as
+   phase 16 checks its models, at full width and bs 1 on the 1024x2048
+   Cityscapes test frame (A exact at float32 output, A once per forward
+   and B-E never, the kernel path and TF32 defaults against the module
+   forms, replay against eager, both timed), with the text tower's share
+   of the replayed forward; the eval step at CPU_FRAME_HW against its CPU
+   copy with one template (``SAN_SIMPLE``); its train step at the config's
+   batch of its loader's 1024x1024 crops with the host time of each
+   Hungarian matching; the card's step against the CPU's at
+   PHASE20_CHECK, 4 x 128x128, one template (float64; float32 with the
+   ReLU signs, the assignment and the loss's points pinned); through the
+   train and test CLIs on phase 10's tree (``--cfg-options
+   model.image_encoder.out_origin=True``), the test CLI equal to the
+   last step's val; the config as shipped raising ``ValueError``.
 
 It prints the card line and a ``{"kernels": [...]}`` line (``launches``:
 the wrappers' count in phase 4; ``device_launches``: the CUDA launches the
@@ -336,7 +353,9 @@ the same of phase 14; ``datasets_launches``, ``datasets_device_launches``,
 ``cascade_transformers_launches``, ``cascade_transformers_device_launches``,
 ``cascade_transformers_max_abs_err``: the same of phase 18;
 ``knet_m2f_launches``, ``knet_m2f_device_launches``,
-``knet_m2f_max_abs_err``: the same of phase 19; E's row also has
+``knet_m2f_max_abs_err``: the same of phase 19; ``san_launches``,
+``san_device_launches``, ``san_max_abs_err``: the same of phase 20; E's
+row also has
 ``device_ms`` and ``cudnn_composition_ms`` per call at the flagship set,
 and ``val_ms``, ``val_plain_ms``, ``val_bound_ms``, ``val_device_ms`` and
 ``val_cudnn_composition_ms`` at the val set, all measured in this run),
@@ -362,11 +381,11 @@ SEED = 0
 TOL_KERNEL = 1e-5         # float32 kernels against their plain versions
 TOL_MODEL = 1e-3          # whole logits, kernel path against module forms
 TRAIN_STEPS = 5           # timed train steps, after one warm-up step
-# the zoo phases' timing repeats (10-19), kept few so that the whole
+# the zoo phases' timing repeats (10-20), kept few so that the whole
 # script stays well inside its 1200 s: each model's forward timed over
-# ZOO_TIMED calls after 2, replayed and eager, and ZOO_TRAIN_STEPS train
-# steps after a warm-up
-ZOO_TIMED = 5
+# ZOO_TIMED calls after 2, replayed and eager, and
+# ZOO_TRAIN_STEPS train steps after a warm-up
+ZOO_TIMED = 3
 ZOO_TRAIN_STEPS = 2
 TRAIN_BATCH = 6           # the flagship config's train batch
 # one train step on the card against the CPU, the bounds that
@@ -392,7 +411,8 @@ ZOO = (('DDRNet-23-slim', 'configs/ddrnet/ddrnet_23-slim_cityscapes-1024x1024.py
 ZOO_WIDE = (('DDRNet-23', 'configs/ddrnet/ddrnet_23_cityscapes-1024x1024.py'),)
 ZOO_IMAGES = 2
 ZOO_TREE_TRAIN, ZOO_TREE_VAL = 6, 2
-ZOO_ITERS = 20
+# the zoo CLIs' steps, one val at the end (few: the script's clock)
+ZOO_ITERS = 10
 # phase 11: the next rows of the paper's speed table, PIDNet and STDC, at
 # their configs' widths (PIDNet-S and STDC1 in full; the wider ones once)
 PID_STDC = (('PIDNet-S', 'configs/pidnet/pidnet-s_cityscapes-1024x1024.py'),
@@ -473,8 +493,9 @@ REALTIME_CLIS = ('ICNet R-18', 'CGNet')
 # nearly tie, its input's float32 rounding comes out up to 1 / (2 sqrt(eps))
 # = 158x larger, and the step's float32 distance from float64 is a draw of
 # those few channels (tools/torch_port_train_gap.py --grad-trace); over 4
-# values a near tie needs all four to agree
-REALTIME_CHECK = (4, 256)
+# values a near tie needs all four to agree.  At 128x128, as R50_D8_CHECK,
+# for the script's clock: the 1/32 maps are 4x4
+REALTIME_CHECK = (4, 128)
 CPU_FRAME_HW = (256, 512)     # the card's eval step against the CPU copy's
 # phase 17: SCTNet-B, RTFormer-Base, PSPNet R50-D8 and DeepLabV3+ R50-D8 at
 # full width on FRAME_HW, RTFormer-Slim once; RTFormer-Base and DeepLabV3+
@@ -520,6 +541,22 @@ MSDEFORM = {'model.decode_head.pixel_decoder': 'msdeform'}
 # the card's step against the CPU's, (batch, size): K-Net's D8 maps 16x16,
 # Mask2Former's 1/32 maps 4x4
 PHASE19_CHECK = (4, 128)
+# phase 20: SAN ViT-B16.  As shipped, its side adapter fuses four CLIP
+# features and its ViT gives three, which raises in both packages; the ViT's
+# token stream is the fourth (mmsegmentation's SAN config sets it), given
+# through cfg_options: the config file stays as it is
+SAN = (('SAN ViT-B16', 'configs/san/san-vit-b16_cityscapes-512x512.py'),)
+SAN_OPTIONS = {'model.image_encoder.out_origin': True}
+# the card against its CPU copy: one prompt template, 19 prompts (the
+# config's 'vild' has 361), so that the CPU's text tower stays cheap
+SAN_SIMPLE = {'model.text_encoder.templates': 'simple'}
+# the CLIs: the loader's crops of frames resized by 0.5-2.0 are as high as
+# the frame where it is under 1024, and a height off the multiples of 32
+# gives a side-adapter grid that is no whole multiple of CLIP's, which
+# raises in both packages; every batch is padded to the crop, 1024x1024
+SAN_CLI_OPTIONS = dict(SAN_OPTIONS, **{'model.data_preprocessor.size': (1024, 1024)})
+# the card's step against the CPU's, (batch, size): the side grid 8x8, CLIP's 4x4
+PHASE20_CHECK = (4, 128)
 BF16_U = 2.0 ** -8     # bfloat16's unit roundoff: the amp loss's bound, relative
 CE_LOSSES = [dict(type='CrossEntropyLoss', loss_weight=1.0),
              dict(type='CrossEntropyLoss', loss_weight=0.4)]
@@ -975,18 +1012,23 @@ def to_device(labels, device):
     return labels.to(device)
 
 
-def train_once(cfg, device, imgs, lbl, seed, dtype=None):
+def train_once(cfg, device, imgs, lbl, seed, dtype=None, start=None):
     """One train step of a seeded model of ``cfg`` on ``device`` (its
     weights cast to ``dtype`` if given), at the state step
     :func:`start_step` gives: (loss, state_dict on the CPU).  ``lbl``:
-    labels or a dict of label maps."""
+    labels or a dict of label maps.  ``start``: that seeded model, built
+    on the CPU, copied in place of building it again (the seeded
+    initialisation of a full-width model costs seconds of host time)."""
     import dataclasses
     import torch
     from lednet_tpu_torch.apis import init_model
     from lednet_tpu_torch.engine import (build_optimizer, create_train_state,
                                          make_train_step)
-    model = init_model(cfg, device=device,
-                       generator=torch.Generator().manual_seed(seed))
+    if start is None:
+        model = init_model(cfg, device=device,
+                           generator=torch.Generator().manual_seed(seed))
+    else:
+        model = copy.deepcopy(start).to(device)
     if dtype is not None:
         model.to(dtype)
     opt, sched = build_optimizer(model, cfg.optim_wrapper, cfg.param_scheduler)
@@ -1060,8 +1102,9 @@ def decisions(kept, flips=None, pin=False):
     candidates PointHead keeps as its training points and Mask2Former as
     its loss's points (``top_uncertain``), K-Net's hard masks
     (``KernelUpdateHead.hard_mask``), Mask2Former's attention masks
-    (``MaskFormerHead.attention_mask``) and its Hungarian assignment
-    (``MaskFormerHead.assign``).
+    (``MaskFormerHead.attention_mask``), its Hungarian assignment
+    (``MaskFormerHead.assign``), and SAN's points and assignment
+    (``SideAdapterCLIPHead``'s, the same functions).
     Inside, with ``flips`` None, each is appended to ``kept`` in call
     order; else ``flips[kind]`` counts where the step decides otherwise
     than the next of ``kept``, and with ``pin`` the step follows
@@ -1073,6 +1116,8 @@ def decisions(kept, flips=None, pin=False):
         MaskFormerHead
     from lednet_tpu_torch.models.decode_heads.pid_head import PIDHead
     from lednet_tpu_torch.models.decode_heads.point_head import PointHead
+    from lednet_tpu_torch.models.decode_heads.san_head import \
+        SideAdapterCLIPHead as SAN
     from lednet_tpu_torch.models.losses.cross_entropy import OhemCrossEntropy
     from lednet_tpu_torch.structures import OHEMPixelSampler
     threshold, relu, max_pool = OhemCrossEntropy.threshold, F.relu, F.max_pool2d
@@ -1136,8 +1181,9 @@ def decisions(kept, flips=None, pin=False):
     OhemCrossEntropy.threshold, F.relu, F.max_pool2d = ohem, rectify, pool
     PIDHead.boundary_gate, OHEMPixelSampler.keep_mask = gate, sampled
     PointHead.top_uncertain = MaskFormerHead.top_uncertain = points
+    SAN.top_uncertain = points
     KernelUpdateHead.hard_mask, MaskFormerHead.attention_mask = hard, attend
-    MaskFormerHead.assign = matched
+    MaskFormerHead.assign = SAN.assign = matched
     try:
         yield
     finally:
@@ -1146,9 +1192,10 @@ def decisions(kept, flips=None, pin=False):
         PIDHead.boundary_gate, OHEMPixelSampler.keep_mask = (boundary_gate,
                                                              keep_mask)
         PointHead.top_uncertain = MaskFormerHead.top_uncertain = top_uncertain
+        SAN.top_uncertain = top_uncertain
         KernelUpdateHead.hard_mask, MaskFormerHead.attention_mask = (
             hard_mask, attention_mask)
-        MaskFormerHead.assign = assign
+        MaskFormerHead.assign = SAN.assign = assign
 
 
 def float32_bounds(cpu_loss, cpu_weights, cpu_stats):
@@ -1177,7 +1224,8 @@ def hold_float32(name, card, cpu_runs, exact):
     def distance(run):
         dl, _, _, shares = train_distance(run, exact)
         return (dl, max(r for r, k in shares if 'running' not in k),
-                max(r for r, k in shares if 'running' in k), shares)
+                max((r for r, k in shares if 'running' in k), default=0.0),
+                shares)
     loss, weights, stats, shares = distance(card)
     cpu_loss, cpu_weights, cpu_stats = (max(d) for d in zip(
         *(distance(run)[:3] for run in cpu_runs)))
@@ -1803,12 +1851,20 @@ def without_dropout(cfg):
     ``dropout_ratio`` 0 where it drops units (ERFNet's blocks; two RNG
     streams cannot drop the same units or samples), and a note saying so
     ('' when none had any)."""
+    import inspect
+    import lednet_tpu_torch.models  # noqa: F401  (registers the modules)
+    from lednet_tpu_torch.registry import MODELS
     aux = cfg.model.get('auxiliary_head') or []
     one_aux = not isinstance(aux, (list, tuple))      # a head, not a list
     decode = cfg.model.decode_head
     cascade = isinstance(decode, (list, tuple))       # every stage's
     heads = (list(decode) if cascade else [decode]) + (
         [aux] if one_aux else list(aux))
+    # SAN's head drops nothing and takes no dropout_ratio (Mask2Former's
+    # passes it on through **kwargs)
+    heads = [h for h in heads if any(
+        n == 'dropout_ratio' or p.kind == p.VAR_KEYWORD for n, p in
+        inspect.signature(MODELS.get(h['type'])).parameters.items())]
     extra, notes = {}, []
     if any(h.get('dropout_ratio', 0.1) for h in heads):
         if cascade:
@@ -1821,12 +1877,12 @@ def without_dropout(cfg):
                 dict(aux, dropout_ratio=0.0) if one_aux else
                 [dict(h, dropout_ratio=0.0) for h in aux])
         notes.append('dropout 0 in every head')
-    if cfg.model.backbone.get('drop_path_rate',
-                              class_default(cfg.model.backbone,
-                                            'drop_path_rate')):
+    backbone = cfg.model.get('backbone') or {}      # SAN has an image_encoder
+    if backbone and backbone.get('drop_path_rate',
+                                 class_default(backbone, 'drop_path_rate')):
         extra['model.backbone.drop_path_rate'] = 0.0
         notes.append('drop_path_rate 0')
-    if cfg.model.backbone.get('dropout_ratio'):
+    if backbone.get('dropout_ratio'):
         extra['model.backbone.dropout_ratio'] = 0.0
         notes.append("the backbone's dropout 0")
     return extra, (', ' + ' and '.join(notes) + ' for this comparison only'
@@ -1945,7 +2001,7 @@ def timed_train(card, label, cfg, rng, gen):
 
 
 def zoo_models(card, models=ZOO, wide=ZOO_WIDE, frame_hw=(SIZE, SIZE),
-               check=(2, 256), cpu_hw=None):
+               check=(2, 256), cpu_hw=None, check_options=None):
     """Phases 10-16, inference and training of ``models`` at their
     configs' widths (seeded weights, non-trivial BatchNorm stats; phase 10:
     DDRNet-23-slim and BiSeNetV1 R-18, phase 11: PIDNet-S and STDC1, phase
@@ -1957,9 +2013,11 @@ def zoo_models(card, models=ZOO, wide=ZOO_WIDE, frame_hw=(SIZE, SIZE),
     ``cpu_hw``, the eval step's replayed graph and the eager kernel path on
     a frame of that size against the model copied to the CPU; each train
     step timed at the config's batch and its loader's crop; the card's
-    train step against the CPU's at ``check`` (batch, size); returns the
-    kernels' wrapper launches and device launches of their main path and
-    kernel A's largest error at float32 output."""
+    train step against the CPU's at ``check`` (batch, size), with
+    ``check_options`` merged into its config.  An entry of ``models`` is
+    (label, config) or (label, config, cfg options).  Returns the kernels'
+    wrapper launches and device launches of their main path and kernel A's
+    largest error at float32 output."""
     import torch
     from lednet_tpu_torch.apis import inference_model, init_model
     from lednet_tpu_torch.config import Config
@@ -1978,8 +2036,11 @@ def zoo_models(card, models=ZOO, wide=ZOO_WIDE, frame_hw=(SIZE, SIZE),
     x_val = torch.randint(0, 256, VAL_SHAPE + (3,), generator=gen,
                           dtype=torch.uint8).cuda()
     launches, device, a_errs = {}, {}, []
-    for label, config in models:
-        model = init_model(config, device='cuda', generator=gen)
+    for label, config, *options in models:
+        t0 = time.perf_counter()
+        options = options[0] if options else {}
+        model = init_model(config, device='cuda', generator=gen,
+                           cfg_options=options)
         randomize_norms(model, gen)
         classes = predicting_head_cfg(model.cfg.model)['num_classes']
         pre = model.data_preprocessor
@@ -2095,7 +2156,7 @@ def zoo_models(card, models=ZOO, wide=ZOO_WIDE, frame_hw=(SIZE, SIZE),
         if cpu_hw is not None:
             small = torch.from_numpy(rng.integers(0, 256, (1,) + cpu_hw + (3,),
                                                   dtype=np.uint8))
-            cpu_model = init_model(config, device='cpu')
+            cpu_model = init_model(config, device='cpu', cfg_options=options)
             cpu_model.load_state_dict(model.state_dict())
             with torch.inference_mode():
                 want = make_eval_step(cpu_model, cpu_model.data_preprocessor,
@@ -2128,6 +2189,8 @@ def zoo_models(card, models=ZOO, wide=ZOO_WIDE, frame_hw=(SIZE, SIZE),
                 f'plain {a_plain:.4f} ms, bound {bound:.4f} ms ({by}); on {card}')
         del model, step, res, plain, tf32
         torch.cuda.empty_cache()
+        say(f'  {label} inference checks and timing: '
+            f'{time.perf_counter() - t0:.1f} s (host clock)')
 
     # the wider variants once each, eager and replayed
     for label, config in wide:
@@ -2135,16 +2198,20 @@ def zoo_models(card, models=ZOO, wide=ZOO_WIDE, frame_hw=(SIZE, SIZE),
 
     # training: the config's batch at its crop size, then the card's step
     # against the CPU's
-    for label, config in models:
+    for label, config, *options in models:
         cfg = Config.fromfile(config)
+        cfg.merge_from_dict(options[0] if options else {})
         edges = edge_width(cfg)
         classes = predicting_head_cfg(cfg.model)['num_classes']
+        t0 = time.perf_counter()
         timed_train(card, label, cfg, rng, gen)
+        t1 = time.perf_counter()
 
         extra, note = without_dropout(cfg)
         n_check, size = check
         at = f'{n_check}x{size}x{size}'
         extra['model.data_preprocessor.size'] = (size, size)
+        extra.update(check_options or {})
         cfg.merge_from_dict(extra)
         s_imgs, s_lbl = train_batch(np.random.default_rng(SEED + 11), n_check,
                                     size, edges, classes)
@@ -2159,9 +2226,12 @@ def zoo_models(card, models=ZOO, wide=ZOO_WIDE, frame_hw=(SIZE, SIZE),
         # weights and BatchNorm stats are held to float64 within
         # float32_bounds
         runs, kept, flips = {}, [], {}
+        start = init_model(cfg, device='cpu',
+                           generator=torch.Generator().manual_seed(SEED + 11))
         with decisions(kept):
             runs['cpu', torch.float64] = train_once(cfg, 'cpu', s_imgs, s_lbl,
-                                                    SEED + 11, torch.float64)
+                                                    SEED + 11, torch.float64,
+                                                    start)
         for dev, dtype, pin in (('cpu', torch.float32, True),
                                 ('cuda', torch.float64, False),
                                 ('cuda', torch.float32, True),
@@ -2170,7 +2240,7 @@ def zoo_models(card, models=ZOO, wide=ZOO_WIDE, frame_hw=(SIZE, SIZE),
             with torch.backends.cudnn.flags(enabled=False), \
                     decisions(kept, n, pin):
                 runs[dev, dtype, pin] = train_once(cfg, dev, s_imgs, s_lbl,
-                                                   SEED + 11, dtype)
+                                                   SEED + 11, dtype, start)
         cpu64 = runs['cpu', torch.float64]
         say(f'  {label} one step, {at}: of {len(kept)} calls that decide '
             '(OHEM, ReLU, max pool, boundary gate, pixel sampler, point '
@@ -2197,12 +2267,15 @@ def zoo_models(card, models=ZOO, wide=ZOO_WIDE, frame_hw=(SIZE, SIZE),
         try:
             with decisions(kept, {}, True):
                 cpu_one = train_once(cfg, 'cpu', s_imgs, s_lbl, SEED + 11,
-                                     torch.float32)
+                                     torch.float32, start)
         finally:
             torch.set_num_threads(threads)
         hold_float32(f'{label} one step, {at}, decisions pinned{note}',
                      runs['cuda', torch.float32, True],
                      (runs['cpu', torch.float32, True], cpu_one), cpu64)
+        del start, runs
+        say(f'  {label} timed train steps {t1 - t0:.1f} s, the card\'s step '
+            f'against the CPU\'s {time.perf_counter() - t1:.1f} s (host clock)')
     return launches, device, max(a_errs)
 
 
@@ -2349,7 +2422,7 @@ def data_root_options(cfg, data):
 
 
 def zoo_entry_points(card, tmp, label, config, tree='cityscapes', tta=None,
-                     test=True):
+                     test=True, options=()):
     """Phases 10-15, entry points, called in this process (:func:`call_cli`):
     ``config`` through the train CLI (``ZOO_ITERS`` steps, one val at the
     end) on the tree ``tree`` in
@@ -2358,13 +2431,14 @@ def zoo_entry_points(card, tmp, label, config, tree='cityscapes', tta=None,
     aug, COCO-Stuff and iSAID ones), then, with ``test``, the test CLI on
     the last checkpoint, which must equal that val; with ``tta`` (a
     ``tta_pipeline``) the test CLI once more with ``--tta`` and that
-    pipeline, whose metrics must be finite."""
+    pipeline, whose metrics must be finite.  ``options`` are more
+    ``--cfg-options`` of both CLIs."""
     from lednet_tpu_torch.config import Config
 
     cfg = Config.fromfile(config)
     crop = loader_crop(cfg)
     loader = cfg.train_dataloader
-    options = data_root_options(cfg, os.path.join(tmp, tree))
+    options = data_root_options(cfg, os.path.join(tmp, tree)) + list(options)
     work = os.path.join(tmp, 'work_' + label.replace(' ', '_'))
     t0 = time.perf_counter()
     iters, vals = train_log(call_cli(
@@ -2742,6 +2816,94 @@ def knet_mask2former(card, tmp):
         SEED + 19), cpu_x8=small)
     for label, config in KNET_M2F:
         zoo_entry_points(card, tmp, label, config)
+    return out
+
+
+def san(card, tmp):
+    """Phase 20: SAN ViT-B16 (SAN, with SAN_OPTIONS) through
+    :func:`zoo_models` on the Cityscapes test frame (1 x 1024 x 2048): its
+    train step at the config's batch of the loader's crops with the host
+    time of each Hungarian matching, the card's step against the CPU's at
+    PHASE20_CHECK with one template (SAN_SIMPLE; in float32 the assignment
+    and the loss's points pinned with the ReLU signs); the text tower's
+    share of the forward's device time; the eval step at CPU_FRAME_HW with
+    one template against its CPU copy; the train and test CLIs on
+    :func:`zoo_tree`'s tree in ``tmp``; the config as shipped raising.
+    Returns what ``zoo_models`` does."""
+    import torch
+    from lednet_tpu_torch.apis import init_model
+    from lednet_tpu_torch.config import Config
+    from lednet_tpu_torch.engine import float32_math, make_eval_step
+    from lednet_tpu_torch.models.decode_heads.san_head import SideAdapterCLIPHead
+    label, config = SAN[0]
+    try:
+        init_model(config, device='cuda')
+    except ValueError as e:
+        say(f'  {label} as shipped (no out_origin) raises ValueError: {e}')
+    else:
+        raise AssertionError(f'{label} as shipped built')
+
+    # the matching's host time in the timed train steps: the wait for the
+    # cost on the card (the forward's queue) and scipy's Hungarian
+    batch = Config.fromfile(config).train_dataloader.batch_size
+    matching, assign = [], SideAdapterCLIPHead.assign
+
+    def timed_assign(self, cost):
+        t0 = time.perf_counter()
+        host = cost.detach().cpu()
+        t1 = time.perf_counter()
+        out = assign(self, host).to(cost.device)
+        if cost.is_cuda and cost.shape[0] == batch:
+            matching.append((t1 - t0, time.perf_counter() - t1))
+        return out
+    SideAdapterCLIPHead.assign = timed_assign
+    try:
+        out = zoo_models(card, tuple((*m, SAN_OPTIONS) for m in SAN), (),
+                         frame_hw=FRAME_HW, check=PHASE20_CHECK,
+                         check_options=SAN_SIMPLE)
+    finally:
+        SideAdapterCLIPHead.assign = assign
+    matching = matching[2:]          # the warm-up step's two, scipy's import
+    if not matching:
+        raise AssertionError('no matching was timed')
+    wait, scipy_s = (np.array(v) * 1e3 for v in zip(*matching))
+    say(f'  {label} train step matching ({len(matching)} calls of the timed '
+        f'steps, 2 a step: the deep-supervision tap and the last): waiting '
+        f'for the cost on '
+        f'the card {np.median(wait):.3f} ms (median; {wait.min():.3f}-'
+        f'{wait.max():.3f}), scipy\'s Hungarian on {batch} images '
+        f'{np.median(scipy_s):.3f} ms ({scipy_s.min():.3f}-{scipy_s.max():.3f})'
+        f'; host clock; on {card}')
+
+    # the text tower's share of the forward (CUDA events, float32)
+    gen = torch.Generator().manual_seed(SEED + 20)
+    rng = np.random.default_rng(SEED + 20)
+    model = init_model(config, device='cuda', generator=gen,
+                       cfg_options=SAN_OPTIONS)
+    randomize_norms(model, gen)
+    step = make_eval_step(model, model.data_preprocessor)
+    x8 = torch.from_numpy(rng.integers(0, 256, (1,) + FRAME_HW + (3,),
+                                       dtype=np.uint8)).cuda()
+    with torch.inference_mode(), float32_math():
+        text_ms = cuda_ms(model.text_encoder, reps=ZOO_TIMED, warmup=2)
+        replay_ms = cuda_ms(lambda: step(x8), reps=ZOO_TIMED, warmup=2)
+    prompts = model.text_encoder.tokens.shape[0]
+    say(f'  {label} text tower ({prompts} prompts of 77 tokens, eager): '
+        f'{text_ms:.3f} ms, {text_ms / replay_ms:.3f} of the replayed '
+        f'forward\'s {replay_ms:.3f} ms at 1x{FRAME_HW[0]}x{FRAME_HW[1]} '
+        f'(CUDA events, float32); on {card}')
+    del model, step
+    torch.cuda.empty_cache()
+
+    # the card against its CPU copy, one template
+    cfg = Config.fromfile(config)
+    cfg.merge_from_dict(dict(SAN_OPTIONS, **SAN_SIMPLE))
+    small = torch.from_numpy(rng.integers(0, 256, (1,) + CPU_FRAME_HW + (3,),
+                                          dtype=np.uint8))
+    once(card, f'{label} one template', cfg, small.cuda(), gen, cpu_x8=small)
+    zoo_entry_points(card, tmp, label, config,
+                     options=[f'{k}={v!r}'.replace(' ', '')
+                              for k, v in SAN_CLI_OPTIONS.items()])
     return out
 
 
@@ -3170,6 +3332,8 @@ def main() -> int:
             ct_launches, ct_device, ct_a_err = cascade_transformers(card, tree)
         with phase('19 knet mask2former'):
             km_launches, km_device, km_a_err = knet_mask2former(card, tree)
+        with phase('20 san'):
+            san_launches, san_device, san_a_err = san(card, tree)
     for row in rows:
         row['entry_point_launches'] = entry_launches[row['name']]
         row['entry_point_device_launches'] = entry_device[row['name']]
@@ -3216,6 +3380,10 @@ def main() -> int:
         row['knet_m2f_device_launches'] = km_device[row['name']]
         row['knet_m2f_max_abs_err'] = (km_a_err if row['name'] ==
                                        'normalize_image' else None)
+        row['san_launches'] = san_launches[row['name']]
+        row['san_device_launches'] = san_device[row['name']]
+        row['san_max_abs_err'] = (san_a_err if row['name'] ==
+                                  'normalize_image' else None)
 
     say(card)
     say(json.dumps({'kernels': rows}))

@@ -22,9 +22,15 @@ The port's modules carry the flax module names, so the mapping is by path:
   ``input_gate`` / ``update_gate`` / ``fc_layer`` / ``attn_{q,k,v,proj}``
   / ``ffn_fc{1,2}`` / ``mask_fc{i}`` / ``fc_mask``, MaskFormer's
   ``{c,s}{q,k,v}`` / ``{c,s}proj`` / ``interm_embed`` / ``cls_embed`` /
-  ``mask_mlp{i}`` / ``mask_embed`` and the deformable attention's
+  ``mask_mlp{i}`` / ``mask_embed``, the deformable attention's
   ``sampling_offsets`` / ``attention_weights`` / ``value_proj{l}`` /
-  ``output_proj``; any other 2-D kernel raises;
+  ``output_proj``, the ViT's ``b{i}_attn`` (``qkv`` / ``proj``) and
+  ``b{i}_fc{1,2}``, the CLIP text and SAN side-adapter blocks' ``q`` /
+  ``k`` / ``v`` / ``proj`` / ``fc{1,2}``, SAN's recognition blocks'
+  ``b{i}_{q,k,v,proj,fc1,fc2}`` and ``proj``, and its mask decoder's MLPs
+  ``{query,pix,attn}_mlp`` (``fc{i}``); any other 2-D kernel raises;
+- an ``nn.Embed``'s ``embedding`` (the CLIP text tower's
+  ``token_embedding``) -> ``nn.Embedding``'s ``weight``, same layout;
 - the 3-D kernels of PointHead's 1-D convs ``fc{i}`` / ``fc_seg`` ((1, in,
   out)) -> ``nn.Conv1d``'s (out, in, 1) weight, axes (2, 1, 0); any other
   3-D kernel raises;
@@ -42,9 +48,12 @@ The port's modules carry the flax module names, so the mapping is by path:
 - PReLU ``alpha``, GETB ``relative_position_bias_table``, MSCAN's
   ``layer_scale_{1,2}``, K-Net's ``seg_bias``, MaskFormer's
   ``query_embed`` (1, Q, D), the deformable decoder's ``level_embed`` (L,
-  D) and biases keep their names and layouts;
-- the segmentor's ``_backbone``/``_neck``/``_decode_head`` lose the
-  leading underscore, its auxiliary heads ``_aux_heads_{i}`` become
+  D), the ViT's ``pos_embed`` / ``cls_token``, the text tower's
+  ``positional_embedding`` / ``text_projection`` (in, out) /
+  ``bg_embed``, the side adapter's ``pos_embed`` / ``query_embed`` /
+  ``query_pos_embed`` and biases keep their names and layouts;
+- the segmentor's ``_backbone``/``_neck``/``_decode_head`` (SAN's
+  ``_image_encoder`` / ``_text_encoder`` too) lose the leading underscore, its auxiliary heads ``_aux_heads_{i}`` become
   ``aux_heads.{i}``, and a cascade's heads ``_heads_{i}`` become
   ``decode_heads.{i}``;
 - the trunk that ``BiSeNetV1``, ``STDCContextPathNet`` and ``ICNet`` build
@@ -113,7 +122,12 @@ norm2,fc1,fc2}`` and its ``s{s}_b{b}_rel_bias`` table / ``out_norm{s}`` /
 ``ffn_norm``, ``mask_norm{i}``), MaskFormerHead's ``lateral{i}`` /
 ``fpn{i}`` / ``mask_feat`` / ``dec{l}`` (``norm_{cross,self,ffn}``) /
 ``dec_norm`` and its ``pixel_decoder`` (``input_proj{i}`` / ``enc{l}``
-with ``attn``, ``norm{1,2}`` / ``lateral`` / ``mask_feat``); a norm's
+with ``attn``, ``norm{1,2}`` / ``lateral`` / ``mask_feat``), the ViT's
+``patch_embed`` / ``pre_ln`` / ``b{i}_norm{1,2}`` / ``final_norm``, the
+text tower's ``block{i}`` (``ln_1`` / ``ln_2``) / ``ln_final``, and SAN's
+``side_adapter_network`` (``patch_embed`` / ``clip_ln{i}`` /
+``clip_proj{i}`` / ``layer{i}`` / ``mask_decoder``) and
+``rec_with_attnbias`` (``b{i}_ln{1,2}`` / ``ln_post``); a norm's
 module is ``bn``, ``gn`` or ``ln`` by its type.  Any other automatic flax name (``ClassName_{n}``)
 has no counterpart in the port and raises.
 
@@ -173,7 +187,11 @@ _DENSE = re.compile(
     r'|attn_proj|ffn_fc[12]|mask_fc\d+|fc_mask'
     # MaskFormer's decoder and outputs, the deformable attention
     r'|[cs][qkv]|[cs]proj|interm_embed|cls_embed|mask_mlp\d+|mask_embed'
-    r'|sampling_offsets|attention_weights|value_proj\d+|output_proj')
+    r'|sampling_offsets|attention_weights|value_proj\d+|output_proj'
+    # SAN: the ViT's fused ``qkv`` and its blocks' ``b{i}_fc{1,2}``, the
+    # split ``q`` / ``k`` / ``v`` of the text, side-adapter and
+    # recognition blocks (``b{i}_*`` in the last), the mask decoder's MLPs
+    r'|qkv|[kv]|b\d+_([qkv]|proj|fc[12])|fc\d+')
 _DENSE_MODULES = ('f_glo',)
 _CONV1D = re.compile(r'fc\d+|fc_seg')    # PointHead's 1-D convs
 # raw parameter banks: name -> (rank, axes to the port's layout or None)
@@ -213,7 +231,7 @@ def _param_entry(path: Tuple[str, ...], value: np.ndarray,
         value, leaf = np.transpose(value, (2, 1, 0)), 'weight'
     elif leaf == 'kernel':
         raise ValueError(f'unexpected {value.ndim}-D kernel at {where}')
-    elif leaf == 'scale':
+    elif leaf in ('scale', 'embedding'):       # a norm's; an ``nn.Embed``'s
         leaf = 'weight'
     return '.'.join(mods + [leaf]), value
 

@@ -33,7 +33,7 @@ GPU (or the CPU, ``device='cpu'``):
 
 ``val_spatial_shard``, the visualization hook's ``draw=True`` and the
 single-logit head (``out_channels=1``) raise ``NotImplementedError``
-(ROADMAP Queue 1 items 7, 5, 6).
+(ROADMAP: multi-GPU, visualization, single-logit binary head).
 """
 from __future__ import annotations
 
@@ -217,15 +217,16 @@ class Runner:
         cfg = self.cfg
         if cfg.get('val_spatial_shard'):
             raise NotImplementedError('val_spatial_shard is later work in the '
-                                      'port (ROADMAP Queue 1 item 7)')
+                                      'port (ROADMAP: multi-GPU)')
         vis = (cfg.get('default_hooks') or {}).get('visualization') or {}
         if vis.get('draw'):
             raise NotImplementedError('the visualization hook (draw=True) is '
-                                      'later work in the port (ROADMAP Queue 1 '
-                                      'item 5)')
+                                      'later work in the port (ROADMAP: '
+                                      'visualization)')
         if predicting_head_cfg(cfg.model).get('out_channels', 2) == 1:
             raise NotImplementedError('the single-logit binary head is later '
-                                      'work in the port (ROADMAP Queue 1 item 6)')
+                                      'work in the port (ROADMAP: single-logit '
+                                      'binary head)')
         loader = build_dataloader(dict(cfg[loader_key]), seed=self.seed)
         metainfo = loader.dataset.metainfo
         num_classes = len(metainfo.get('classes', [])) or 2

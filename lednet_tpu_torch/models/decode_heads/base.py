@@ -54,7 +54,8 @@ def resolve_out_channels(num_classes: int, out_channels: Optional[int]) -> int:
         return num_classes
     if num_classes == 2 and out_channels == 1:
         raise NotImplementedError('the single-logit binary head is later '
-                                  'work in the port (ROADMAP Queue 1 item 6)')
+                                  'work in the port (ROADMAP: single-logit '
+                                  'binary head)')
     raise ValueError(f'out_channels={out_channels} incompatible with '
                      f'num_classes={num_classes}')
 

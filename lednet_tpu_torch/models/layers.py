@@ -267,6 +267,34 @@ class DropPath(nn.Module):
                                                               device=x.device))
 
 
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Multi-head attention of (B, heads, N, d) ``q`` and (B, heads, M, d)
+    ``k`` / ``v``: scores at scale ``d ** -0.5`` (plus the additive
+    ``bias``) through a softmax at float32 or wider, then the values.
+    Plain matmuls and a softmax, as the JAX package computes attention
+    outside any Pallas kernel (the ViT, the CLIP text tower, SAN's
+    blocks)."""
+    acc = torch.promote_types(q.dtype, torch.float32)
+    scores = torch.matmul(q.to(acc), k.to(acc).transpose(-2, -1)) * \
+        q.shape[-1] ** -0.5
+    if bias is not None:
+        scores = scores + bias
+    return torch.matmul(scores.softmax(-1).to(v.dtype), v)
+
+
+def split_heads(x: torch.Tensor, heads: int) -> torch.Tensor:
+    """(B, N, C) -> (B, heads, N, C // heads), the channels head-major."""
+    B, N, C = x.shape
+    return x.view(B, N, heads, C // heads).transpose(1, 2)
+
+
+def merge_heads(x: torch.Tensor) -> torch.Tensor:
+    """(B, heads, N, d) -> (B, N, heads * d)."""
+    B, h, N, d = x.shape
+    return x.transpose(1, 2).reshape(B, N, h * d)
+
+
 def fold_bn(bn: nn.BatchNorm2d) -> Tuple[torch.Tensor, torch.Tensor]:
     """Eval-mode BatchNorm of a module as a per-channel (scale, bias) pair."""
     return bn_fold(bn.weight, bn.bias, bn.running_mean, bn.running_var, bn.eps)

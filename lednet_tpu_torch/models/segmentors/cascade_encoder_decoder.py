@@ -36,13 +36,16 @@ class CascadeEncoderDecoder(EncoderDecoder):
                  auxiliary_head: Optional[Any] = None,
                  train_cfg: Optional[Dict] = None,
                  test_cfg: Optional[Dict] = None,
-                 data_preprocessor: Optional[Dict] = None):
+                 data_preprocessor: Optional[Dict] = None,
+                 pretrained: Optional[str] = None,
+                 init_cfg: Optional[Dict] = None):
         if not isinstance(decode_head, (list, tuple)) or \
                 len(decode_head) != num_stages:
             raise ValueError(f'a cascade of {num_stages} stages needs as many '
                              f'decode_head configs, got {decode_head!r}')
         super().__init__(backbone, decode_head, neck, auxiliary_head,
-                         train_cfg, test_cfg, data_preprocessor)
+                         train_cfg, test_cfg, data_preprocessor, pretrained,
+                         init_cfg)
 
     def build_decode_head(self, decode_head) -> None:
         self.decode_heads = nn.ModuleList(MODELS.build(dict(c))

@@ -20,7 +20,8 @@ device).  A crop larger than the image raises, as the JAX package's
 has one, is built once and applied to the backbone's outputs in
 ``extract_feat`` (``:48``, ``:67``), so ``loss``, ``predict``,
 ``predict_slide`` and the TTA path all run it; flax names it ``_neck``.
-The single-logit binary head is later work.
+The single-logit binary head is later work.  ``pretrained`` and
+``init_cfg`` are accepted and never read, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -57,9 +58,14 @@ class EncoderDecoder(nn.Module):
                  neck: Optional[Dict] = None,
                  auxiliary_head: Optional[Any] = None,
                  train_cfg: Optional[Dict] = None, test_cfg: Optional[Dict] = None,
-                 data_preprocessor: Optional[Dict] = None):
+                 data_preprocessor: Optional[Dict] = None,
+                 pretrained: Optional[str] = None,
+                 init_cfg: Optional[Dict] = None):
         """``data_preprocessor`` is built beside the model by ``init_model``;
-        ``auxiliary_head`` is a head config or a list of them."""
+        ``auxiliary_head`` is a head config or a list of them.
+        ``pretrained`` and ``init_cfg`` are accepted and never read, as in
+        the JAX package (``encoder_decoder.py:42-43``): the model builds on
+        random weights."""
         super().__init__()
         self.train_cfg = dict(train_cfg or {})
         self.test_cfg = dict(test_cfg or {})

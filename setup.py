@@ -15,5 +15,6 @@ setup(
     ],
     include_package_data=True,
     package_data={'lednet_tpu': ['native/*.cpp', 'models/text_encoder/data/*.gz'],
-                  'lednet_tpu_torch': ['csrc/*.cu', 'csrc/*.cuh', 'native/*.cpp']},
+                  'lednet_tpu_torch': ['csrc/*.cu', 'csrc/*.cuh', 'native/*.cpp',
+                                       'models/text_encoder/data/*.gz']},
 )

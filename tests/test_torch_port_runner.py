@@ -226,15 +226,16 @@ def test_unported_options_raise(tree, tmp_path):
         import torch_port_train
     finally:
         sys.path.pop(0)
-    with pytest.raises(NotImplementedError, match='Queue 1 item 7'):
+    with pytest.raises(NotImplementedError, match='ROADMAP: multi-GPU'):
         torch_port_train.main(['cfg.py', '--launcher', 'pytorch'])
-    with pytest.raises(NotImplementedError, match='Queue 1 item 7'):
+    with pytest.raises(NotImplementedError, match='ROADMAP: multi-GPU'):
         torch_port_test.main(['cfg.py', 'x.pth', '--launcher', 'slurm'])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match='CUDA is not available'):
             Runner(tiny_cfg(tree), work_dir=str(tmp_path))
-    for key, value, item in (('val_spatial_shard', True, 'item 7'),
-                             ('default_hooks.visualization.draw', True, 'item 5')):
+    for key, value, item in (('val_spatial_shard', True, 'ROADMAP: multi-GPU'),
+                             ('default_hooks.visualization.draw', True,
+                              'ROADMAP: visualization')):
         runner = Runner(tiny_cfg(tree, **{key: value}), work_dir=str(tmp_path),
                         device='cpu')
         with pytest.raises(NotImplementedError, match=item):

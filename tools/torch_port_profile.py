@@ -7,8 +7,9 @@
 Builds the flagship LED-Net (``configs/LED_Net/lednet_80k_cityscapes-1024x1024.py``,
 or the model of ``--config``: DDRNet, BiSeNetV1, PIDNet, STDC, BiSeNetV2,
 HRNet, SegNeXt, UNet, ICNet, Fast-SCNN, ERFNet, CGNet, LR-ASPP, SCTNet,
-RTFormer, PSPNet, DeepLabV3+, OCRNet, PointRend, SegFormer, Swin, K-Net
-and Mask2Former run kernel A alone and skip the kernel E readings
+RTFormer, PSPNet, DeepLabV3+, OCRNet, PointRend, SegFormer, Swin, K-Net,
+Mask2Former and SAN (``--cfg-options model.image_encoder.out_origin=True``)
+run kernel A alone and skip the kernel E readings
 below) with seeded random weights through ``lednet_tpu_torch.apis.init_model``,
 and profiles bs=1 forwards (preprocess + ``predict``, or ``predict_slide``
 where the config's ``test_cfg`` says slide) of a ``--size`` square or an
@@ -31,8 +32,10 @@ of K-Net's and MaskFormer's heads (``kernel_update_ms``: each
 ``KernelUpdateHead`` stage; ``pixel_decoder_ms``: MaskFormer's pixel
 decoder, FPN or deformable; ``transformer_decoder_ms``: its decoder
 layers; ``matching_ms``: the Hungarian assignment, a host round trip, in
-a ``--train`` step; each also as ``*_host_ms``, the host time inside the
-range), the device
+a ``--train`` step, SAN's too), of SAN's parts (``text_encoder_ms``: the
+CLIP text tower; ``side_adapter_ms``: the side adapter network with its
+mask decoder; ``recognition_ms``: ``RecWithAttnbias``), each also as
+``*_host_ms``, the host time inside the range), the device
 time and launches per forward of each of the port's CUDA kernels by op
 (kernel D's reduce and fused launches; kernel E, which no model calls,
 reads 0), the top device kernels by time and the top aten ops by the device
@@ -108,7 +111,8 @@ import time
 CONFIG = 'configs/LED_Net/lednet_80k_cityscapes-1024x1024.py'
 # the profiler ranges main() puts around calls
 RANGES = ('nmf', 'attention', 'kernel_update', 'pixel_decoder',
-          'transformer_decoder', 'matching')
+          'transformer_decoder', 'matching', 'text_encoder', 'side_adapter',
+          'recognition')
 
 
 def _time_us(evt, names):
@@ -605,7 +609,8 @@ def main() -> int:
         return 0
     from lednet_tpu_torch.models.backbones import rtformer, sctnet
     from lednet_tpu_torch.models.decode_heads import (ham_head, knet_head,
-                                                      maskformer_head)
+                                                      maskformer_head, san_head)
+    from lednet_tpu_torch.models.text_encoder import CLIPTextEncoder
 
     def ranged(fn, name):
         def call(*a, **kw):
@@ -623,6 +628,13 @@ def main() -> int:
     mf.assign = ranged(mf.assign, 'matching')
     maskformer_head._DecoderLayer.forward = ranged(
         maskformer_head._DecoderLayer.forward, 'transformer_decoder')
+    CLIPTextEncoder.forward = ranged(CLIPTextEncoder.forward, 'text_encoder')
+    san_head.SideAdapterNetwork.forward = ranged(
+        san_head.SideAdapterNetwork.forward, 'side_adapter')
+    san_head.RecWithAttnbias.forward = ranged(san_head.RecWithAttnbias.forward,
+                                              'recognition')
+    san_head.SideAdapterCLIPHead.assign = ranged(
+        san_head.SideAdapterCLIPHead.assign, 'matching')
     slide = model.test_cfg.get('mode') == 'slide'
     paths = [('cuda', eager_forward(model, x, 'cuda')),
              ('plain', eager_forward(model, x, 'plain'))]

@@ -10,8 +10,8 @@ metrics as one JSON line and writes them to ``WORK_DIR/test_results.json``.
 CHECKPOINT is an ``iter_N.pth`` of ``tools/torch_port_train.py``.  ``--out``
 writes each prediction as a PNG.  ``--tta`` swaps the test pipeline for the
 config's ``tta_pipeline`` (each image's views merged by their mean
-probabilities).  ``--launcher`` other than ``none`` is ROADMAP Queue 1 item
-7 and raises.
+probabilities).  ``--launcher`` other than ``none`` raises: multi-GPU
+evaluation is later work (ROADMAP: multi-GPU).
 """
 import argparse
 import json
@@ -41,7 +41,7 @@ def main(argv=None):
     args = parse_args(argv)
     if args.launcher != 'none':
         raise NotImplementedError('multi-GPU evaluation is later work in the '
-                                  'port (ROADMAP Queue 1 item 7)')
+                                  'port (ROADMAP: multi-GPU)')
     from lednet_tpu_torch.config import Config
     from lednet_tpu_torch.datasets import configure_datasets
     from lednet_tpu_torch.engine.runner import Runner

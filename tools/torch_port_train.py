@@ -6,8 +6,8 @@
 
 The CLI of ``tools/train.py``, on one GPU through the port's ``Runner``.
 It runs on CUDA and raises without a GPU (``--device cpu`` runs on the
-CPU).  ``--launcher`` takes only ``none``: multi-GPU training is ROADMAP
-Queue 1 item 7.
+CPU).  ``--launcher`` takes only ``none``: multi-GPU training is later
+work (ROADMAP: multi-GPU).
 """
 import argparse
 import os.path as osp
@@ -39,7 +39,7 @@ def main(argv=None):
     args = parse_args(argv)
     if args.launcher != 'none':
         raise NotImplementedError('multi-GPU training is later work in the '
-                                  'port (ROADMAP Queue 1 item 7)')
+                                  'port (ROADMAP: multi-GPU)')
     from lednet_tpu_torch.config import Config
     from lednet_tpu_torch.engine.runner import Runner
 

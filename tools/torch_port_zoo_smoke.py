@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """The zoo phases of ``chip_smoke.py`` alone, on one NVIDIA GPU.
 
-    python3 tools/torch_port_zoo_smoke.py [--phase 10 | 11 | ... | 19 | 10 11 ...]
+    python3 tools/torch_port_zoo_smoke.py [--phase 10 | 11 | ... | 20 | 10 11 ...]
 
 Prints the card's name and power limit, builds the kernels, fabricates the
 zoo's Cityscapes tree (``chip_smoke.zoo_tree``) and runs
@@ -58,7 +58,12 @@ phase asked for (default 10):
   card-against-CPU step with the heads' hard masks, attention masks,
   Hungarian assignment and sampled points pinned), one Mask2Former
   forward with the deformable pixel decoder, then both through the train
-  and test CLIs.
+  and test CLIs;
+- 20: ``chip_smoke.san``: as 16 of SAN ViT-B16 (``out_origin=True``
+  through the config options) on the 1024x2048 Cityscapes test frame, with
+  the matching's host time in its train step and the text tower's share
+  of the forward, its card-against-CPU checks with one prompt template,
+  then through the train and test CLIs, and the config as shipped raising.
 
 Exits non-zero if a phase fails or there is no GPU.
 """
@@ -76,7 +81,7 @@ def main() -> int:
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument('--phase', nargs='+',
                     choices=('10', '11', '12', '13', '14', '15', '16', '17',
-                             '18', '19'),
+                             '18', '19', '20'),
                     default=['10'])
     args = ap.parse_args()
     import torch
@@ -117,7 +122,8 @@ def main() -> int:
               '18': ('18 cascade transformers',
                      lambda tree: chip_smoke.cascade_transformers(card, tree)),
               '19': ('19 knet mask2former',
-                     lambda tree: chip_smoke.knet_mask2former(card, tree))}
+                     lambda tree: chip_smoke.knet_mask2former(card, tree)),
+              '20': ('20 san', lambda tree: chip_smoke.san(card, tree))}
     try:
         with chip_smoke.zoo_tree() as tree:
             for key in args.phase:
