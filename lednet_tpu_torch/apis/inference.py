@@ -58,7 +58,10 @@ def init_model(config: Union[str, Config], checkpoint: Optional[str] = None,
     cfg = Config.fromfile(config) if isinstance(config, str) else config
     if cfg_options:
         cfg.merge_from_dict(cfg_options)
-    model = build_segmentor(cfg.model)
+    # built where it will run: on a GPU the constructors' own initialisers
+    # run there, and a full-width model is not made twice on the host
+    with torch.device(device):
+        model = build_segmentor(cfg.model)
     meta: Dict = {}
     if checkpoint is None:
         init_weights(model, generator or torch.Generator().manual_seed(0))

@@ -27,8 +27,11 @@ The port's modules carry the flax module names, so the mapping is by path:
   ``output_proj``, the ViT's ``b{i}_attn`` (``qkv`` / ``proj``) and
   ``b{i}_fc{1,2}``, the CLIP text and SAN side-adapter blocks' ``q`` /
   ``k`` / ``v`` / ``proj`` / ``fc{1,2}``, SAN's recognition blocks'
-  ``b{i}_{q,k,v,proj,fc1,fc2}`` and ``proj``, and its mask decoder's MLPs
-  ``{query,pix,attn}_mlp`` (``fc{i}``); any other 2-D kernel raises;
+  ``b{i}_{q,k,v,proj,fc1,fc2}`` and ``proj``, its mask decoder's MLPs
+  ``{query,pix,attn}_mlp`` (``fc{i}``), DPT's readouts ``readout{i}``,
+  and Segmenter's ``proj_input`` / ``patch_proj`` / ``cls_proj`` (its
+  blocks' ``b{i}_attn`` / ``b{i}_fc{1,2}`` as the ViT's); any other 2-D
+  kernel raises;
 - an ``nn.Embed``'s ``embedding`` (the CLIP text tower's
   ``token_embedding``) -> ``nn.Embedding``'s ``weight``, same layout;
 - the 3-D kernels of PointHead's 1-D convs ``fc{i}`` / ``fc_seg`` ((1, in,
@@ -42,6 +45,10 @@ The port's modules carry the flax module names, so the mapping is by path:
   N) is the 1x1 classifier's (N, C, 1, 1) weight by the same transpose;
   RTFormer's token banks ``k`` (heads, d, m) and ``v`` (heads, m, d) keep
   their layout; a bank of another rank raises;
+- DPT's ``resize0`` / ``resize1`` (flax ``ConvTranspose`` with
+  ``transpose_kernel=True``, a (k, k, out, in) kernel) become
+  ``ConvTranspose2d``'s (in, out, k, k) weight by the (3, 2, 0, 1)
+  transpose of every 4-D kernel, unflipped, as UNet's ``DeconvModule``;
 - BatchNorm ``scale``/``bias`` + ``mean``/``var`` -> ``weight``/``bias`` +
   ``running_mean``/``running_var`` (+ ``num_batches_tracked`` = 0); a
   LayerNorm's or GroupNorm's ``scale`` -> ``weight``;
@@ -51,7 +58,8 @@ The port's modules carry the flax module names, so the mapping is by path:
   D), the ViT's ``pos_embed`` / ``cls_token``, the text tower's
   ``positional_embedding`` / ``text_projection`` (in, out) /
   ``bg_embed``, the side adapter's ``pos_embed`` / ``query_embed`` /
-  ``query_pos_embed`` and biases keep their names and layouts;
+  ``query_pos_embed``, Segmenter's ``cls_emb`` (1, classes, d) and biases
+  keep their names and layouts;
 - the segmentor's ``_backbone``/``_neck``/``_decode_head`` (SAN's
   ``_image_encoder`` / ``_text_encoder`` too) lose the leading underscore, its auxiliary heads ``_aux_heads_{i}`` become
   ``aux_heads.{i}``, and a cascade's heads ``_heads_{i}`` become
@@ -127,7 +135,15 @@ with ``attn``, ``norm{1,2}`` / ``lateral`` / ``mask_feat``), the ViT's
 text tower's ``block{i}`` (``ln_1`` / ``ln_2``) / ``ln_final``, and SAN's
 ``side_adapter_network`` (``patch_embed`` / ``clip_ln{i}`` /
 ``clip_proj{i}`` / ``layer{i}`` / ``mask_decoder``) and
-``rec_with_attnbias`` (``b{i}_ln{1,2}`` / ``ln_post``); a norm's
+``rec_with_attnbias`` (``b{i}_ln{1,2}`` / ``ln_post``), SETRUPHead's
+``ln`` / ``conv{i}`` / ``cls``, SETRMLAHead's ``conv{i}a`` /
+``conv{i}b`` / ``cls``, MLANeck's ``ln{i}`` / ``proj{i}`` / ``out{i}``,
+the Segmenter head's ``b{i}_{norm1,attn,norm2,fc1,fc2}`` / ``norm_out``
+/ ``mask_norm``, DPTHead's ``project{i}`` / ``conv{i}`` / ``resize3`` /
+``fusion{i}_rcu{1,2}`` (``conv1`` / ``conv2``) / ``fusion{i}_project``
+/ ``project`` / ``cls``, MultiLevelNeck's ``lateral{i}`` / ``conv{i}``,
+FPN's ``lateral{i}`` / ``fpn{i}`` and FPNHead's ``scale{i}_conv{k}`` /
+``cls``; a norm's
 module is ``bn``, ``gn`` or ``ln`` by its type.  Any other automatic flax name (``ClassName_{n}``)
 has no counterpart in the port and raises.
 
@@ -191,7 +207,9 @@ _DENSE = re.compile(
     # SAN: the ViT's fused ``qkv`` and its blocks' ``b{i}_fc{1,2}``, the
     # split ``q`` / ``k`` / ``v`` of the text, side-adapter and
     # recognition blocks (``b{i}_*`` in the last), the mask decoder's MLPs
-    r'|qkv|[kv]|b\d+_([qkv]|proj|fc[12])|fc\d+')
+    r'|qkv|[kv]|b\d+_([qkv]|proj|fc[12])|fc\d+'
+    # DPT's readouts, Segmenter's input and output projections
+    r'|readout\d+|proj_input|patch_proj|cls_proj')
 _DENSE_MODULES = ('f_glo',)
 _CONV1D = re.compile(r'fc\d+|fc_seg')    # PointHead's 1-D convs
 # raw parameter banks: name -> (rank, axes to the port's layout or None)

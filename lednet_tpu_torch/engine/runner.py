@@ -79,7 +79,8 @@ class Runner:
         os.makedirs(self.work_dir, exist_ok=True)
         self.seed = seed
         model_cfg = dict(cfg.model)
-        self.model = build_segmentor(model_cfg)
+        with torch.device(self.device):   # no host copy of the weights first
+            self.model = build_segmentor(model_cfg)
         init_weights(self.model, torch.Generator().manual_seed(seed))
         self.model.to(self.device)
         pre_cfg = model_cfg.get('data_preprocessor') or cfg.get('data_preprocessor')

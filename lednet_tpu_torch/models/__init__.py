@@ -6,13 +6,15 @@ from lednet_tpu_torch.models.backbones import (bisenetv1, bisenetv2,  # noqa: F4
                                                mit, mobilenet_v3, mscan, pidnet,
                                                resnet, rtformer, sctnet, stdc,
                                                swin, unet, vit)
-from lednet_tpu_torch.models.decode_heads import (fcn_head, ham_head,  # noqa: F401
-                                                  knet_head, led_head,
-                                                  lraspp_head, maskformer_head,
-                                                  ocr_head, pid_head,
-                                                  point_head, psp_head,
-                                                  san_head, sct_head,
-                                                  segformer_head,
+from lednet_tpu_torch.models.decode_heads import (dpt_head,  # noqa: F401
+                                                  fcn_head, fpn_head,
+                                                  ham_head, knet_head,
+                                                  led_head, lraspp_head,
+                                                  maskformer_head, ocr_head,
+                                                  pid_head, point_head,
+                                                  psp_head, san_head,
+                                                  sct_head, segformer_head,
+                                                  segmenter_head, setr_head,
                                                   stdc_head, uper_head)
 from lednet_tpu_torch.models import necks  # noqa: F401
 from lednet_tpu_torch.models import text_encoder  # noqa: F401

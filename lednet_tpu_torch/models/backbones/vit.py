@@ -25,10 +25,19 @@ Counterpart of ``lednet_tpu/models/backbones/vit.py`` (``_MHSA`` :21,
 ``norm_cfg`` (every LayerNorm is flax's, eps 1e-6), ``act_cfg``,
 ``patch_norm``, ``patch_pad``, ``norm_eval``, ``with_cp``,
 ``frozen_exclude``, ``pretrained`` and ``init_cfg`` are accepted and
-unused, as in the JAX package.  A nonzero ``drop_rate``,
-``attn_drop_rate`` or ``drop_path_rate``, which no config that the port
-builds sets (SETR's and Segmenter's ``_base_`` files do), raises
-``NotImplementedError``.
+unused, as in the JAX package.
+
+The training-time regularisers act in train mode only, at the JAX sites:
+``drop_rate`` after the position add (:127-128), on the attention's
+output projection (:43-44) and after GELU and after ``fc2`` (:150-154);
+``attn_drop_rate`` on the attention probabilities (:38-39); stochastic
+depth on both residual branches of block ``i`` at ``drop_path_rate * i /
+(num_layers - 1)`` (:137-155).  Their masks are drawn from torch's
+default generator of the input's device (``nn.Dropout``,
+``layers.DropPath``); JAX's stream is not reproduced.  A rate of 0 adds
+no module, and the attention forms its probabilities in one expression
+unless its dropout is active, so in eval, or at rate 0, the forward is
+the graph it is without the regularisers.
 """
 from __future__ import annotations
 
@@ -39,36 +48,42 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from lednet_tpu_torch.models.backbones.mit import LN_EPS
-from lednet_tpu_torch.models.layers import attention, merge_heads
-from lednet_tpu_torch.ops.resize import resize_bilinear, resize_nearest
+from lednet_tpu_torch.models.layers import (DropPath, attention, drop_path_rates,
+                                            merge_heads)
+from lednet_tpu_torch.ops.resize import resize_by_mode
 from lednet_tpu_torch.registry import MODELS
 
 
-def resize_grid(x: torch.Tensor, size, mode: str) -> torch.Tensor:
-    """The JAX package's ``resize`` of an NCHW map (``align_corners=False``)."""
-    if mode == 'bilinear':
-        return resize_bilinear(x, size, False)
-    if mode == 'bicubic':
-        return F.interpolate(x, size=tuple(size), mode='bicubic',
-                             align_corners=False)
-    if mode == 'nearest':
-        return resize_nearest(x, size)
-    raise ValueError(f'Unsupported resize mode: {mode}')
+def dropout(rate: float) -> Optional[nn.Module]:
+    """``nn.Dropout(rate)``, or None at rate 0 (no module, no call)."""
+    return nn.Dropout(rate) if rate else None
+
+
+def maybe_apply(module: Optional[nn.Module], x: torch.Tensor) -> torch.Tensor:
+    """``module(x)`` in train mode, ``x`` itself in eval or without one."""
+    return x if module is None or not module.training else module(x)
 
 
 class _MHSA(nn.Module):
+    """The JAX ``_MHSA`` (:21): ``attn_drop`` on the probabilities,
+    ``proj_drop`` on the output projection, each only where nonzero."""
 
-    def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True):
+    def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True,
+                 attn_drop: float = 0.0, proj_drop: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
         self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)
         self.proj = nn.Linear(dim, dim)
+        self.attn_drop = dropout(attn_drop)
+        self.proj_drop = dropout(proj_drop)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, N, C = x.shape
         qkv = self.qkv(x).view(B, N, 3, self.num_heads, C // self.num_heads)
         q, k, v = qkv.permute(2, 0, 3, 1, 4)              # (B, heads, N, d) each
-        return self.proj(merge_heads(attention(q, k, v)))
+        drop = self.attn_drop if self.training else None
+        out = self.proj(merge_heads(attention(q, k, v, dropout=drop)))
+        return maybe_apply(self.proj_drop, out)
 
 
 @MODELS.register_module()
@@ -90,13 +105,6 @@ class VisionTransformer(nn.Module):
                  init_cfg: Optional[Dict] = None, out_origin: bool = False,
                  patch_pad: str = 'corner', patch_bias: bool = False):
         super().__init__()
-        for name, rate in (('drop_rate', drop_rate),
-                           ('attn_drop_rate', attn_drop_rate),
-                           ('drop_path_rate', drop_path_rate)):
-            if rate:
-                raise NotImplementedError(f'VisionTransformer {name}={rate} is '
-                                          'not ported (no config the port '
-                                          'builds sets it)')
         if isinstance(out_indices, int):
             out_indices = (out_indices,)
         p = patch_size
@@ -121,14 +129,17 @@ class VisionTransformer(nn.Module):
                          'cls_token': ('zeros', 0.0)}
         if pre_norm:
             self.pre_ln = nn.LayerNorm(embed_dims, eps=LN_EPS)
+        self.drop = dropout(drop_rate)
         hidden = embed_dims * mlp_ratio
-        for i in range(num_layers):
+        for i, rate in enumerate(drop_path_rates(drop_path_rate, [num_layers])):
             pre = f'b{i}_'
             self.add_module(pre + 'norm1', nn.LayerNorm(embed_dims, eps=LN_EPS))
-            self.add_module(pre + 'attn', _MHSA(embed_dims, num_heads, qkv_bias))
+            self.add_module(pre + 'attn', _MHSA(embed_dims, num_heads, qkv_bias,
+                                               attn_drop_rate, drop_rate))
             self.add_module(pre + 'norm2', nn.LayerNorm(embed_dims, eps=LN_EPS))
             self.add_module(pre + 'fc1', nn.Linear(embed_dims, hidden))
             self.add_module(pre + 'fc2', nn.Linear(hidden, embed_dims))
+            self.add_module(pre + 'drop_path', DropPath(rate) if rate else None)
         if final_norm:
             self.final_norm = nn.LayerNorm(embed_dims, eps=LN_EPS)
 
@@ -146,7 +157,7 @@ class VisionTransformer(nn.Module):
         if (gh, gw) != self.pos_grid:
             grid = grid_pos.transpose(1, 2).reshape(1, self.embed_dims,
                                                     *self.pos_grid)
-            grid = resize_grid(grid, (gh, gw), self.interpolate_mode)
+            grid = resize_by_mode(grid, (gh, gw), self.interpolate_mode)
             grid_pos = grid.flatten(2).transpose(1, 2)
         return torch.cat([cls_pos, grid_pos], 1)
 
@@ -163,7 +174,7 @@ class VisionTransformer(nn.Module):
         B, _, gh, gw = x.shape
         x = x.flatten(2).transpose(1, 2)
         x = torch.cat([self.cls_token.expand(B, -1, -1), x], 1)
-        x = x + self.position_embedding(gh, gw)
+        x = maybe_apply(self.drop, x + self.position_embedding(gh, gw))
         if not self.with_cls_token:
             x = x[:, 1:]
         if self.pre_norm:
@@ -171,9 +182,12 @@ class VisionTransformer(nn.Module):
         outs = [self._grid_out(x, gh, gw)] if self.out_origin else []
         for i in range(self.num_layers):
             pre = f'b{i}_'
-            x = x + getattr(self, pre + 'attn')(getattr(self, pre + 'norm1')(x))
+            drop_path = getattr(self, pre + 'drop_path')
+            h = getattr(self, pre + 'attn')(getattr(self, pre + 'norm1')(x))
+            x = x + maybe_apply(drop_path, h)
             h = F.gelu(getattr(self, pre + 'fc1')(getattr(self, pre + 'norm2')(x)))
-            x = x + getattr(self, pre + 'fc2')(h)
+            h = getattr(self, pre + 'fc2')(maybe_apply(self.drop, h))
+            x = x + maybe_apply(drop_path, maybe_apply(self.drop, h))
             if i == self.num_layers - 1 and self.use_final_norm:
                 x = self.final_norm(x)
             if i in self.out_indices:

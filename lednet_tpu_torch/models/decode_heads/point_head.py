@@ -32,14 +32,19 @@ Counterpart of ``lednet_tpu/models/decode_heads/point_setr_heads.py``
   the card and its copy on the CPU draw the same points; the JAX package
   draws them from its ``dropout`` key, a stream no torch generator
   reproduces;
+- the fine map: the level ``in_index`` selects, or the first of a list
+  of them (``in_index=[0]`` selects as ``'multiple_select'``, as mmseg's
+  PointHead does);
 - ``loss_by_feat``: the labels at the points, nearest by truncation
   (``int(x * W)``, clipped), cross-entropy over the valid points divided by
   their number (at least 1), as ``loss_point`` (no loss weight);
   ``predict_by_feat`` resizes the refined logits.
 
-The loss and sampler options of the other heads (``loss_decode``,
-``sampler``), which the JAX head accepts and never reads, raise
-``NotImplementedError`` here.
+The JAX head accepts the other heads' ``loss_decode`` and ``sampler``
+and never reads them.  Here a ``loss_decode`` of one plain
+cross-entropy at weight 1 (``pointrend_r50.py``'s), which is what
+``loss_point`` computes, is accepted; any other, and any ``sampler``,
+raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -86,14 +91,25 @@ class PointHead(nn.Module):
         """``dropout_ratio``, ``norm_cfg`` and ``act_cfg`` are accepted and
         unused, as in the JAX package (the MLP has neither)."""
         super().__init__()
-        for name, value in (('loss_decode', loss_decode), ('sampler', sampler)):
-            if value is not None:
-                raise NotImplementedError(f'PointHead {name}: its loss is '
-                                          'loss_point alone, as in the JAX '
-                                          'package')
+        plain_ce = dict(type='CrossEntropyLoss', use_sigmoid=False,
+                        loss_weight=1.0)
+        if loss_decode is not None and \
+                dict(plain_ce, **loss_decode) != plain_ce:
+            raise NotImplementedError(f'PointHead loss_decode={loss_decode}: '
+                                      'its loss is loss_point alone, a plain '
+                                      'cross-entropy, as in the JAX package')
+        if sampler is not None:
+            raise NotImplementedError('PointHead sampler: its loss is '
+                                      'loss_point alone, as in the JAX package')
         if isinstance(in_channels, (list, tuple)):
             in_channels = (in_channels[0] if input_transform != 'resize_concat'
                            else sum(in_channels))
+        if isinstance(in_index, (list, tuple)) and input_transform is None:
+            # ``pointrend_r50.py``'s ``in_index=[0]``: mmseg's PointHead
+            # always selects its levels as a list; the JAX head indexes the
+            # outputs with the list and raises (ROADMAP, gaps on the
+            # reference's side)
+            input_transform = 'multiple_select'
         self.in_index = in_index
         self.input_transform = input_transform
         self.num_points = num_points

@@ -44,7 +44,10 @@ class HeadBase(nn.Module):
     takes several levels (``takes_list``: UPerHead, SegformerHead,
     MaskFormerHead) selects them with ``'multiple_select'`` and no other
     transform.  A head that classifies otherwise (``classifier`` False:
-    K-Net's kernels, MaskFormer's queries) has no ``cls``."""
+    K-Net's kernels, MaskFormer's queries, Segmenter's masks, which are
+    its logits) has no ``cls`` of ``channels``; ``n_out`` is the
+    classifier's width either way (SETRMLAHead builds its ``cls`` over
+    its concatenated levels)."""
     takes_list = False
     classifier = True
 
@@ -81,9 +84,9 @@ class HeadBase(nn.Module):
         self.losses = build_losses(loss_decode)
         self.sampler = (MODELS.build(dict(sampler)) if sampler is not None
                         else None)
-        n_out = resolve_out_channels(num_classes, out_channels)
+        self.n_out = resolve_out_channels(num_classes, out_channels)
         if self.classifier:
-            self.cls = ClsSeg(channels, n_out, dropout_ratio)
+            self.cls = ClsSeg(channels, self.n_out, dropout_ratio)
 
     def _conv(self, cin, cout, k, **kw):
         return ConvModule(cin, cout, k, norm_cfg=self.norm_cfg,

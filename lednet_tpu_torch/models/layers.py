@@ -268,19 +268,23 @@ class DropPath(nn.Module):
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+              bias: Optional[torch.Tensor] = None,
+              dropout: Optional[Callable] = None) -> torch.Tensor:
     """Multi-head attention of (B, heads, N, d) ``q`` and (B, heads, M, d)
     ``k`` / ``v``: scores at scale ``d ** -0.5`` (plus the additive
     ``bias``) through a softmax at float32 or wider, then the values.
     Plain matmuls and a softmax, as the JAX package computes attention
     outside any Pallas kernel (the ViT, the CLIP text tower, SAN's
-    blocks)."""
+    blocks).  ``dropout`` (the ViT's active attention dropout) is applied
+    to the probabilities, cast to the values' type, before the product."""
     acc = torch.promote_types(q.dtype, torch.float32)
     scores = torch.matmul(q.to(acc), k.to(acc).transpose(-2, -1)) * \
         q.shape[-1] ** -0.5
     if bias is not None:
         scores = scores + bias
-    return torch.matmul(scores.softmax(-1).to(v.dtype), v)
+    if dropout is None:
+        return torch.matmul(scores.softmax(-1).to(v.dtype), v)
+    return torch.matmul(dropout(scores.softmax(-1).to(v.dtype)), v)
 
 
 def split_heads(x: torch.Tensor, heads: int) -> torch.Tensor:

@@ -95,6 +95,22 @@ def resize_nearest(x: torch.Tensor, size: Sequence[int]) -> torch.Tensor:
     return x
 
 
+def resize_by_mode(x: torch.Tensor, size: Sequence[int], mode: str) -> torch.Tensor:
+    """The JAX package's ``resize`` of an NCHW map to ``size`` by ``mode``
+    (``lednet_tpu/ops/resize.py:218``, ``align_corners=False``): bilinear,
+    bicubic (``F.interpolate``, which the JAX package's torch-parity
+    bicubic reproduces) or nearest by the legacy rounding (the ViT's
+    position embeddings, FPN's top-down path)."""
+    if mode == 'bilinear':
+        return resize_bilinear(x, size, False)
+    if mode == 'bicubic':
+        return F.interpolate(x, size=tuple(size), mode='bicubic',
+                             align_corners=False)
+    if mode == 'nearest':
+        return resize_nearest(x, size)
+    raise ValueError(f'Unsupported resize mode: {mode}')
+
+
 def _keys_cubic(x: np.ndarray) -> np.ndarray:
     """The Keys cubic kernel (A = -0.5) of |distance| ``x``, float32."""
     one, two = np.float32(1.0), np.float32(2.0)

@@ -563,11 +563,26 @@ def test_config_builds_and_every_leaf_maps():
 @pytest.mark.parametrize('rate', ['drop_rate', 'attn_drop_rate',
                                   'drop_path_rate'])
 def test_vit_refuses_unported_drop_rates(rate):
-    """A nonzero dropout or stochastic-depth rate, which no config the
-    port builds sets, raises rather than running without it."""
+    """Each nonzero dropout or stochastic-depth rate, which the port's ViT
+    once refused (hence the name), is ported: it builds, in eval the ViT
+    is its rate-0 forward exactly, and in training (a fixed seed) the rate
+    acts.  ``tests/test_torch_port_vit_fpn.py`` holds the laws."""
     from lednet_tpu_torch.models.backbones.vit import VisionTransformer
-    with pytest.raises(NotImplementedError, match=rate):
-        VisionTransformer(embed_dims=24, num_layers=1, num_heads=3, **{rate: 0.1})
+    cfg = dict(embed_dims=24, num_layers=2, num_heads=3, img_size=32,
+               patch_size=8, out_indices=(1,))
+    vit = VisionTransformer(**cfg, **{rate: 0.1})
+    zero = VisionTransformer(**cfg)
+    torch.manual_seed(0)
+    for p in vit.parameters():
+        torch.nn.init.normal_(p, std=0.2)
+    zero.load_state_dict(vit.state_dict())
+    x = torch.from_numpy(np.random.default_rng(9).standard_normal(
+        (8, 3, 32, 32)).astype(np.float32))
+    with torch.no_grad():
+        want = zero.eval()(x)[0]
+        assert torch.equal(vit.eval()(x)[0], want)
+        torch.manual_seed(1)
+        assert not torch.equal(vit.train()(x)[0], want)
 
 
 def test_unchanged_config_raises_in_both_packages():

@@ -8,8 +8,9 @@ Builds the flagship LED-Net (``configs/LED_Net/lednet_80k_cityscapes-1024x1024.p
 or the model of ``--config``: DDRNet, BiSeNetV1, PIDNet, STDC, BiSeNetV2,
 HRNet, SegNeXt, UNet, ICNet, Fast-SCNN, ERFNet, CGNet, LR-ASPP, SCTNet,
 RTFormer, PSPNet, DeepLabV3+, OCRNet, PointRend, SegFormer, Swin, K-Net,
-Mask2Former and SAN (``--cfg-options model.image_encoder.out_origin=True``)
-run kernel A alone and skip the kernel E readings
+Mask2Former, SAN (``--cfg-options model.image_encoder.out_origin=True``)
+and the ViT and FPN ``_base_`` files as ``chip_smoke.compose_base``
+composes them run kernel A alone and skip the kernel E readings
 below) with seeded random weights through ``lednet_tpu_torch.apis.init_model``,
 and profiles bs=1 forwards (preprocess + ``predict``, or ``predict_slide``
 where the config's ``test_cfg`` says slide) of a ``--size`` square or an

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """The zoo phases of ``chip_smoke.py`` alone, on one NVIDIA GPU.
 
-    python3 tools/torch_port_zoo_smoke.py [--phase 10 | 11 | ... | 20 | 10 11 ...]
+    python3 tools/torch_port_zoo_smoke.py [--phase 10 | 11 | ... | 21 | 10 11 ...]
 
 Prints the card's name and power limit, builds the kernels, fabricates the
 zoo's Cityscapes tree (``chip_smoke.zoo_tree``) and runs
@@ -63,7 +63,14 @@ phase asked for (default 10):
   through the config options) on the 1024x2048 Cityscapes test frame, with
   the matching's host time in its train step and the text tower's share
   of the forward, its card-against-CPU checks with one prompt template,
-  then through the train and test CLIs, and the config as shipped raising.
+  then through the train and test CLIs, and the config as shipped raising;
+- 21: ``chip_smoke.vit_fpn``: the eight ViT and semantic FPN
+  ``_base_/models`` files composed with their datasets and schedules
+  (``chip_smoke.compose_base``), as 16 at full width (SETR on ViT-L, FPN
+  and PointRend-FPN R50 on the 1024x2048 frame; Segmenter, DPT and the
+  MLN UPerNet on a 512x683 ADE20K frame), the train steps with the
+  configs' drop rates active, four of them held to the CPU's, then
+  SETR-MLA, PointRend-FPN and Segmenter through the train and test CLIs.
 
 Exits non-zero if a phase fails or there is no GPU.
 """
@@ -81,7 +88,7 @@ def main() -> int:
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument('--phase', nargs='+',
                     choices=('10', '11', '12', '13', '14', '15', '16', '17',
-                             '18', '19', '20'),
+                             '18', '19', '20', '21'),
                     default=['10'])
     args = ap.parse_args()
     import torch
@@ -123,7 +130,8 @@ def main() -> int:
                      lambda tree: chip_smoke.cascade_transformers(card, tree)),
               '19': ('19 knet mask2former',
                      lambda tree: chip_smoke.knet_mask2former(card, tree)),
-              '20': ('20 san', lambda tree: chip_smoke.san(card, tree))}
+              '20': ('20 san', lambda tree: chip_smoke.san(card, tree)),
+              '21': ('21 vit fpn', lambda tree: chip_smoke.vit_fpn(card, tree))}
     try:
         with chip_smoke.zoo_tree() as tree:
             for key in args.phase:
