@@ -346,6 +346,18 @@ printing one flushed line with its seconds:
    frame a chunk), PointRend-FPN and Segmenter (slide val, phase 13's
    ADE20K tree) through the train and test CLIs, each test CLI equal to
    the last step's val.
+22. context heads: the ten R50-D8 context-head ``configs/_base_/models``
+   files (ANN, APC, CC, DA, DM, EMA, Enc, GC, ISA, PSA; unchanged),
+   composed with Cityscapes, the 80k schedule and the runtime
+   (``CONTEXT_HEADS``, ``compose_base``), as phase 16 checks its models
+   at full width and bs 1 on the 1024x2048 Cityscapes test frame, DANet's
+   and CCNet's gammas seeded nonzero; each against its CPU copy at
+   CPU_FRAME_HW; each train step at the composed config's batch and crop;
+   the card's step against the CPU's at CONTEXT_CHECK (4 x 64x64) for
+   EMANet, EncNet and DANet; EMANet through the train and test CLIs, the
+   test CLI equal to the last step's val; NLHead and DNLHead, whose files
+   raise, built without ``mode`` on a seeded NL_FEATURE map against their
+   CPU copies.
 
 It prints the card line and a ``{"kernels": [...]}`` line (``launches``:
 the wrappers' count in phase 4; ``device_launches``: the CUDA launches the
@@ -372,7 +384,9 @@ the same of phase 14; ``datasets_launches``, ``datasets_device_launches``,
 ``knet_m2f_max_abs_err``: the same of phase 19; ``san_launches``,
 ``san_device_launches``, ``san_max_abs_err``: the same of phase 20;
 ``vit_fpn_launches``, ``vit_fpn_device_launches``,
-``vit_fpn_max_abs_err``: the same of phase 21; E's
+``vit_fpn_max_abs_err``: the same of phase 21;
+``context_heads_launches``, ``context_heads_device_launches``,
+``context_heads_max_abs_err``: the same of phase 22; E's
 row also has
 ``device_ms`` and ``cudnn_composition_ms`` per call at the flagship set,
 and ``val_ms``, ``val_plain_ms``, ``val_bound_ms``, ``val_device_ms`` and
@@ -399,12 +413,13 @@ SEED = 0
 TOL_KERNEL = 1e-5         # float32 kernels against their plain versions
 TOL_MODEL = 1e-3          # whole logits, kernel path against module forms
 TRAIN_STEPS = 5           # timed train steps, after one warm-up step
-# the zoo phases' timing repeats (10-21), kept few so that the whole
+# the zoo phases' timing repeats (10-22), kept few so that the whole
 # script stays well inside its 1200 s: each model's forward timed over
 # ZOO_TIMED calls after 1, replayed and eager, and
-# ZOO_TRAIN_STEPS train steps after a warm-up
-ZOO_TIMED = 3
-ZOO_TRAIN_STEPS = 2
+# ZOO_TRAIN_STEPS train steps after a warm-up (3 and 2 before phase 22
+# came)
+ZOO_TIMED = 2
+ZOO_TRAIN_STEPS = 1
 TRAIN_BATCH = 6           # the flagship config's train batch
 # one train step on the card against the CPU, the bounds that
 # tests/test_train_parity.py holds lednet_tpu to torch
@@ -606,6 +621,29 @@ VIT_FPN = (
     ('PointRend-FPN R50', 'pointrend_r50.py', 'cityscapes.py',
      'schedule_80k.py', 19, (512, 1024)),
 )
+# phase 22: the R50-D8 context heads, one configs/_base_/models file each,
+# composed as mmsegmentation's top-level configs of these families compose
+# them (compose_base): Cityscapes 512x1024 crops, 80k schedule, 19 classes
+CONTEXT_HEADS = tuple(
+    (label, f'{name}_r50-d8.py', 'cityscapes.py', 'schedule_80k.py', 19,
+     (512, 1024)) for label, name in (
+        ('ANNNet R50-D8', 'ann'), ('APCNet R50-D8', 'apcnet'),
+        ('CCNet R50-D8', 'ccnet'), ('DANet R50-D8', 'danet'),
+        ('DMNet R50-D8', 'dmnet'), ('EMANet R50-D8', 'emanet'),
+        ('EncNet R50-D8', 'encnet'), ('GCNet R50-D8', 'gcnet'),
+        ('ISANet R50-D8', 'isanet'), ('PSANet R50-D8', 'psanet')))
+# NLHead and DNLHead: their files pass ``mode``, which neither package's
+# head takes; phase 22 builds each head from its file's decode_head without
+# it
+NL_HEADS = (('NLHead', 'nonlocal_r50-d8.py'), ('DNLHead', 'dnl_r50-d8.py'))
+NL_FEATURE = (2, 2048, 64, 128)     # R50-D8's stage-4 map of a 512x1024 crop
+# the three whose train steps phase 22 holds to the CPU's: EMANet (the bases
+# buffer, ema_mid_conv's decay), EncNet (the SE loss, encoding_bn) and
+# DANet (three losses), at batch 4 (PHASE21_CHECK's) of 64x64: the 1/8 maps
+# 8x8, every BatchNorm over 256 values or more, a quarter of the CPU's
+# float64 and float32 work of 128x128
+CONTEXT_CHECKED = ('EMANet R50-D8', 'EncNet R50-D8', 'DANet R50-D8')
+CONTEXT_CHECK = (4, 64)
 BF16_U = 2.0 ** -8     # bfloat16's unit roundoff: the amp loss's bound, relative
 CE_LOSSES = [dict(type='CrossEntropyLoss', loss_weight=1.0),
              dict(type='CrossEntropyLoss', loss_weight=0.4)]
@@ -1317,6 +1355,17 @@ def randomize_norms(model, gen):
                                                        generator=gen))
                 m.running_var.copy_(0.5 + torch.rand(m.running_var.shape,
                                                      generator=gen))
+
+
+def seed_gammas(model, gen):
+    """The attention heads' residual gammas (DANet's ``pam_gamma`` /
+    ``cam_gamma``, CCNet's ``cca_gamma``), which start at 0 and would hide
+    their attention, drawn in [0.5, 1.5]."""
+    import torch
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith('_gamma'):
+                p.copy_(0.5 + torch.rand(p.shape, generator=gen))
 
 
 def check_logits(name, out, ref):
@@ -2131,6 +2180,7 @@ def zoo_models(card, models=ZOO, wide=ZOO_WIDE, frame_hw=(SIZE, SIZE),
         model = init_model(config, device='cuda', generator=gen,
                            cfg_options=options)
         randomize_norms(model, gen)
+        seed_gammas(model, gen)
         classes = predicting_head_cfg(model.cfg.model)['num_classes']
         pre = model.data_preprocessor
         mode = model.test_cfg.get('mode', 'whole')
@@ -2349,6 +2399,7 @@ def zoo_models(card, models=ZOO, wide=ZOO_WIDE, frame_hw=(SIZE, SIZE),
         runs, kept, flips = {}, [], {}
         start = init_model(cfg, device='cpu',
                            generator=torch.Generator().manual_seed(SEED + 11))
+        seed_gammas(start, torch.Generator().manual_seed(SEED + 12))
         with decisions(kept):
             runs['cpu', torch.float64] = train_once(cfg, 'cpu', s_imgs, s_lbl,
                                                     SEED + 11, torch.float64,
@@ -2500,7 +2551,8 @@ def bise_hrnet(card, tmp):
 
 
 def compose_base(directory, entry):
-    """Write the config of a VIT_FPN ``entry`` into ``directory`` and return
+    """Write the config of a VIT_FPN or CONTEXT_HEADS ``entry`` into
+    ``directory`` and return
     its path: the ``_base_`` model file with its dataset file,
     ``default_runtime.py`` and its schedule (absolute paths into this
     checkout's ``configs/_base_``), the preprocessor's ``size`` set to the
@@ -3114,6 +3166,83 @@ def vit_fpn(card, tmp):
     return launches, device, a_err
 
 
+def nl_heads(card):
+    """Phase 22's NLHead and DNLHead: each file's ``decode_head`` (which
+    passes ``mode``) raising ``TypeError``, then the head built without
+    ``mode`` (seeded weights, non-trivial BatchNorm stats) on a seeded
+    NL_FEATURE map, its forward on the card (eval, float32) against its
+    copy on the CPU within TOL_MODEL with argmax agreement >=
+    MIN_ARGMAX_AGREEMENT, timed (CUDA events)."""
+    import torch
+    import lednet_tpu_torch.models  # noqa: F401  (registers the modules)
+    from lednet_tpu_torch.config import Config
+    from lednet_tpu_torch.engine import float32_math
+    from lednet_tpu_torch.models.layers import init_weights
+    from lednet_tpu_torch.registry import MODELS
+    gen = torch.Generator().manual_seed(SEED + 22)
+    x = torch.randn(NL_FEATURE, generator=gen)
+    base = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'configs',
+                        '_base_', 'models')
+    for head, name in NL_HEADS:
+        cfg = dict(Config.fromfile(os.path.join(base, name)).model.decode_head)
+        try:
+            MODELS.build(cfg)
+        except TypeError as e:
+            say(f'  {name}\'s decode_head (mode={cfg["mode"]!r}) raises '
+                f'TypeError: {e}')
+        else:
+            raise AssertionError(f'{head} took mode')
+        cfg.pop('mode')
+        cpu = MODELS.build(cfg)
+        init_weights(cpu, gen)
+        randomize_norms(cpu, gen)
+        cpu.eval()
+        module = copy.deepcopy(cpu).cuda()
+        x_dev = x.cuda()
+        with torch.inference_mode(), float32_math():
+            want = cpu(x).double()
+            got = module(x_dev).cpu().double()
+            ms = cuda_ms(lambda: module(x_dev), reps=ZOO_TIMED, warmup=1)
+        e = ((got - want).abs().max() / want.abs().max()).item()
+        agree = (got.argmax(1) == want.argmax(1)).double().mean().item()
+        say(f'  {head} (no mode) on {"x".join(map(str, NL_FEATURE))}: the '
+            f'card vs its CPU copy rel {e:.3e} (tol {TOL_MODEL:g}), argmax '
+            f'agreement {agree:.6f}; forward {ms:.3f} ms (float32, eager); '
+            f'on {card}')
+        if not (got.shape == want.shape and e <= TOL_MODEL
+                and agree >= MIN_ARGMAX_AGREEMENT):
+            raise AssertionError(f'{head}: the card and the CPU disagree')
+        del module, x_dev
+        torch.cuda.empty_cache()
+
+
+def context_heads(card, tmp):
+    """Phase 22: the ten CONTEXT_HEADS files, composed into ``tmp``
+    (:func:`compose_base`), through :func:`zoo_models` at full width on the
+    Cityscapes test frame (1 x 1024 x 2048), DANet's and CCNet's gammas
+    seeded nonzero (:func:`seed_gammas`): each against its copy on the CPU
+    at CPU_FRAME_HW, each train step at the composed config's batch and
+    crop, the card's step against the CPU's at CONTEXT_CHECK for
+    CONTEXT_CHECKED; then EMANet through the train and test CLIs on
+    :func:`zoo_tree`'s tree in ``tmp`` (the test CLI equal to the val: the
+    bases buffer goes through the checkpoint), and NLHead and DNLHead as
+    heads (:func:`nl_heads`).  Returns what ``zoo_models`` does, summed."""
+    configs = {e[0]: compose_base(tmp, e) for e in CONTEXT_HEADS}
+    checked = tuple((label, configs[label]) for label in CONTEXT_CHECKED)
+    rest = tuple((e[0], configs[e[0]]) for e in CONTEXT_HEADS
+                 if e[0] not in CONTEXT_CHECKED)
+    launches, device, a_err = {}, {}, 0.0
+    for group, check in ((checked, CONTEXT_CHECK), (rest, None)):
+        more = zoo_models(card, group, (), frame_hw=FRAME_HW,
+                          cpu_hw=CPU_FRAME_HW, check=check)
+        launches = {n: launches.get(n, 0) + c for n, c in more[0].items()}
+        device = {n: device.get(n, 0) + c for n, c in more[1].items()}
+        a_err = max(a_err, more[2])
+    zoo_entry_points(card, tmp, 'EMANet R50-D8', configs['EMANet R50-D8'])
+    nl_heads(card)
+    return launches, device, a_err
+
+
 # ---------------------------------------------------------------- phases
 def main() -> int:
     import torch
@@ -3543,6 +3672,8 @@ def main() -> int:
             san_launches, san_device, san_a_err = san(card, tree)
         with phase('21 vit fpn'):
             vf_launches, vf_device, vf_a_err = vit_fpn(card, tree)
+        with phase('22 context heads'):
+            ch_launches, ch_device, ch_a_err = context_heads(card, tree)
     for row in rows:
         row['entry_point_launches'] = entry_launches[row['name']]
         row['entry_point_device_launches'] = entry_device[row['name']]
@@ -3597,6 +3728,10 @@ def main() -> int:
         row['vit_fpn_device_launches'] = vf_device[row['name']]
         row['vit_fpn_max_abs_err'] = (vf_a_err if row['name'] ==
                                       'normalize_image' else None)
+        row['context_heads_launches'] = ch_launches[row['name']]
+        row['context_heads_device_launches'] = ch_device[row['name']]
+        row['context_heads_max_abs_err'] = (ch_a_err if row['name'] ==
+                                            'normalize_image' else None)
 
     say(card)
     say(json.dumps({'kernels': rows}))

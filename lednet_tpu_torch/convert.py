@@ -29,9 +29,10 @@ The port's modules carry the flax module names, so the mapping is by path:
   ``k`` / ``v`` / ``proj`` / ``fc{1,2}``, SAN's recognition blocks'
   ``b{i}_{q,k,v,proj,fc1,fc2}`` and ``proj``, its mask decoder's MLPs
   ``{query,pix,attn}_mlp`` (``fc{i}``), DPT's readouts ``readout{i}``,
-  and Segmenter's ``proj_input`` / ``patch_proj`` / ``cls_proj`` (its
-  blocks' ``b{i}_attn`` / ``b{i}_fc{1,2}`` as the ViT's); any other 2-D
-  kernel raises;
+  Segmenter's ``proj_input`` / ``patch_proj`` / ``cls_proj`` (its
+  blocks' ``b{i}_attn`` / ``b{i}_fc{1,2}`` as the ViT's), CCHead's
+  ``cca_{q,k,v}``, NLHead's ``theta`` / ``phi`` / ``g`` and EncHead's
+  ``fc`` / ``se_layer``; any other 2-D kernel raises;
 - an ``nn.Embed``'s ``embedding`` (the CLIP text tower's
   ``token_embedding``) -> ``nn.Embedding``'s ``weight``, same layout;
 - the 3-D kernels of PointHead's 1-D convs ``fc{i}`` / ``fc_seg`` ((1, in,
@@ -51,15 +52,18 @@ The port's modules carry the flax module names, so the mapping is by path:
   transpose of every 4-D kernel, unflipped, as UNet's ``DeconvModule``;
 - BatchNorm ``scale``/``bias`` + ``mean``/``var`` -> ``weight``/``bias`` +
   ``running_mean``/``running_var`` (+ ``num_batches_tracked`` = 0); a
-  LayerNorm's or GroupNorm's ``scale`` -> ``weight``;
+  LayerNorm's or GroupNorm's ``scale`` -> ``weight``; but a ``scale``
+  beside ``codewords`` is EncHead's ``Encoding``'s smoothing factors and
+  keeps its name; EMAHead's ``bases`` batch stat is its ``bases`` buffer;
 - PReLU ``alpha``, GETB ``relative_position_bias_table``, MSCAN's
   ``layer_scale_{1,2}``, K-Net's ``seg_bias``, MaskFormer's
   ``query_embed`` (1, Q, D), the deformable decoder's ``level_embed`` (L,
   D), the ViT's ``pos_embed`` / ``cls_token``, the text tower's
   ``positional_embedding`` / ``text_projection`` (in, out) /
   ``bg_embed``, the side adapter's ``pos_embed`` / ``query_embed`` /
-  ``query_pos_embed``, Segmenter's ``cls_emb`` (1, classes, d) and biases
-  keep their names and layouts;
+  ``query_pos_embed``, Segmenter's ``cls_emb`` (1, classes, d), the
+  attention heads' 0-d ``pam_gamma`` / ``cam_gamma`` / ``cca_gamma``,
+  EncHead's ``codewords`` (K, C) and biases keep their names and layouts;
 - the segmentor's ``_backbone``/``_neck``/``_decode_head`` (SAN's
   ``_image_encoder`` / ``_text_encoder`` too) lose the leading underscore, its auxiliary heads ``_aux_heads_{i}`` become
   ``aux_heads.{i}``, and a cascade's heads ``_heads_{i}`` become
@@ -143,7 +147,13 @@ the Segmenter head's ``b{i}_{norm1,attn,norm2,fc1,fc2}`` / ``norm_out``
 ``fusion{i}_rcu{1,2}`` (``conv1`` / ``conv2``) / ``fusion{i}_project``
 / ``project`` / ``cls``, MultiLevelNeck's ``lateral{i}`` / ``conv{i}``,
 FPN's ``lateral{i}`` / ``fpn{i}`` and FPNHead's ``scale{i}_conv{k}`` /
-``cls``; a norm's
+``cls``, and the context heads' modules (``context_heads.py``,
+``psa_head.py``: ``conv0`` / ``conv1`` / ``conv_cat``, ``conv_mask``,
+``{mul_,}transform{1,2,_ln}``, ``pam_*`` / ``cam_*``, ``ema_*``,
+``{global,local}_relation_{attn,out}``, ``acm{s}_*``, ``dcm{k}_*``,
+``fusion_q{s}`` / ``context_q{s}`` with the block's
+``{query,key,value,out}_project{i}``, ``encoding_*``, ``reduce{,_p}`` /
+``attention{,_p}{0,1}`` / ``proj``); a norm's
 module is ``bn``, ``gn`` or ``ln`` by its type.  Any other automatic flax name (``ClassName_{n}``)
 has no counterpart in the port and raises.
 
@@ -209,7 +219,10 @@ _DENSE = re.compile(
     # recognition blocks (``b{i}_*`` in the last), the mask decoder's MLPs
     r'|qkv|[kv]|b\d+_([qkv]|proj|fc[12])|fc\d+'
     # DPT's readouts, Segmenter's input and output projections
-    r'|readout\d+|proj_input|patch_proj|cls_proj')
+    r'|readout\d+|proj_input|patch_proj|cls_proj'
+    # CCHead's criss-cross projections, NLHead's embeddings, EncHead's gate
+    # and class-presence layer
+    r'|cca_[qkv]|theta|phi|g|fc|se_layer')
 _DENSE_MODULES = ('f_glo',)
 _CONV1D = re.compile(r'fc\d+|fc_seg')    # PointHead's 1-D convs
 # raw parameter banks: name -> (rank, axes to the port's layout or None)
@@ -218,10 +231,12 @@ _RAW_BANKS = {'kv': (4, (3, 2, 0, 1)), 'kv3': (4, (3, 2, 0, 1)),
 
 
 def _param_entry(path: Tuple[str, ...], value: np.ndarray,
-                 siblings: frozenset) -> Tuple[str, np.ndarray]:
+                 siblings: frozenset,
+                 own: frozenset = frozenset()) -> Tuple[str, np.ndarray]:
     """The port's name and value of the flax leaf at ``path``; ``siblings``
     are the names of the modules beside the leaf's own (its parent's
-    children, :func:`_children`), which tell a transposed conv's module."""
+    children, :func:`_children`), which tell a transposed conv's module;
+    ``own`` the names beside the leaf, which tell EncHead's ``scale``."""
     mods, leaf = _module_path(path[:-1]), path[-1]
     where = '/'.join(path)
     if leaf == 'kernel' and path[-2] == 'deconv':
@@ -249,8 +264,8 @@ def _param_entry(path: Tuple[str, ...], value: np.ndarray,
         value, leaf = np.transpose(value, (2, 1, 0)), 'weight'
     elif leaf == 'kernel':
         raise ValueError(f'unexpected {value.ndim}-D kernel at {where}')
-    elif leaf in ('scale', 'embedding'):       # a norm's; an ``nn.Embed``'s
-        leaf = 'weight'
+    elif leaf in ('scale', 'embedding') and 'codewords' not in own:
+        leaf = 'weight'                        # a norm's; an ``nn.Embed``'s
     return '.'.join(mods + [leaf]), value
 
 
@@ -266,10 +281,17 @@ def flax_to_state_dict(params: Mapping, batch_stats: Optional[Mapping] = None
     sd: Dict[str, torch.Tensor] = {}
     for path, value in _flatten(params):
         name, arr = _param_entry(path, np.asarray(value, np.float32),
-                                 _children(params, path[:-2]))
-        sd[name] = torch.from_numpy(np.ascontiguousarray(arr))
+                                 _children(params, path[:-2]),
+                                 _children(params, path[:-1]))
+        # reshaped: ``ascontiguousarray`` makes a 0-d array (the attention
+        # heads' gammas) 1-d
+        sd[name] = torch.from_numpy(np.ascontiguousarray(arr).reshape(arr.shape))
     for path, value in _flatten(batch_stats or {}):
         mods, leaf = _module_path(path[:-1]), path[-1]
+        if leaf == 'bases':                   # EMAHead's buffer
+            sd['.'.join(mods + [leaf])] = torch.from_numpy(
+                np.ascontiguousarray(np.asarray(value, np.float32)))
+            continue
         if leaf not in ('mean', 'var'):
             raise ValueError(f'unexpected batch stat {"/".join(path)}')
         sd['.'.join(mods + ['running_' + leaf])] = torch.from_numpy(

@@ -6,13 +6,14 @@ from lednet_tpu_torch.models.backbones import (bisenetv1, bisenetv2,  # noqa: F4
                                                mit, mobilenet_v3, mscan, pidnet,
                                                resnet, rtformer, sctnet, stdc,
                                                swin, unet, vit)
-from lednet_tpu_torch.models.decode_heads import (dpt_head,  # noqa: F401
+from lednet_tpu_torch.models.decode_heads import (context_heads,  # noqa: F401
+                                                  dpt_head,
                                                   fcn_head, fpn_head,
                                                   ham_head, knet_head,
                                                   led_head, lraspp_head,
                                                   maskformer_head, ocr_head,
                                                   pid_head, point_head,
-                                                  psp_head, san_head,
+                                                  psa_head, psp_head, san_head,
                                                   sct_head, segformer_head,
                                                   segmenter_head, setr_head,
                                                   stdc_head, uper_head)

@@ -21,9 +21,17 @@ flax's ``ConvTranspose`` here keeps its default ``transpose_kernel=False``:
 its (kh, kw, in, out) kernel is PyTorch's (in, out, kh, kw) weight flipped
 in both spatial axes (:mod:`lednet_tpu_torch.convert` does that for this
 block's ``deconv``, and not for UNet's).
+
+On the card the transposed conv runs with cuDNN's deterministic
+algorithms (``deterministic_cudnn``): the algorithm cuDNN picks otherwise
+for these shapes sums in no fixed order, so two calls on the same input
+differed by a few 1e-4 at outputs of 1e3, and the logits by 3e-3, enough
+to flip an argmax at a near-tie between the eval step's replayed graph and
+the eager path.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Optional, Sequence
 
 import torch
@@ -76,6 +84,18 @@ class NonBottleneck1d(nn.Module):
         return F.relu(x + h)
 
 
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN restricted to deterministic algorithms inside, the caller's
+    flag restored after (the other cuDNN flags are left as they are)."""
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = saved
+
+
 class UpsamplerBlock(nn.Module):
 
     def __init__(self, in_channels: int, out_channels: int,
@@ -87,7 +107,9 @@ class UpsamplerBlock(nn.Module):
         self.bn = Norm2d(norm_cfg or _BN3, out_channels)
 
     def forward(self, x):
-        return F.relu(self.bn(self.deconv(x)))
+        with deterministic_cudnn():
+            y = self.deconv(x)
+        return F.relu(self.bn(y))
 
 
 @MODELS.register_module()

@@ -369,9 +369,13 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
     0.02), ``'normal'`` a normal of that std
     (RTFormer's ``k`` / ``v``, 0.02; Mask2Former's ``level_embed``,
     1.0), ``'zeros'`` zeros (K-Net's ``seg_bias``, the deformable
-    attention's ``sampling_offsets`` weight), and 1-D conv kernels (PointHead's
-    MLP, flax ``nn.Conv``) LeCun normal.
-    Every parameter is
+    attention's ``sampling_offsets`` weight, the attention heads'
+    ``*_gamma``), ``'uniform'`` a uniform draw on the (low, high) that
+    takes the place of std (EncHead's ``codewords`` and ``scale``), and
+    1-D conv kernels (PointHead's MLP, flax ``nn.Conv``) LeCun normal.
+    A 1-D BatchNorm (EncHead's ``encoding_bn``) is initialised as a 2-D
+    one, and a module with an ``init_buffers(generator)`` method draws
+    its own buffers there (EMAHead's ``bases``).  Every parameter is
     overwritten, so the result depends on ``generator`` alone; a parameter of
     no known kind raises."""
     done = set()
@@ -386,6 +390,10 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
                     _normal_(p, std, generator)
                 elif kind == 'zeros':
                     p.zero_()
+                elif kind == 'uniform':
+                    low, high = std
+                    p.copy_(low + (high - low) * torch.rand(p.shape,
+                                                            generator=generator))
                 else:
                     raise ValueError(f'unknown raw_init kind {kind!r}')
             elif isinstance(mod, (nn.Conv1d, nn.Conv2d, nn.ConvTranspose2d,
@@ -400,7 +408,8 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
                 _normal_(p, math.sqrt(gain / fan_in), generator)
             elif isinstance(mod, nn.Linear):              # (out, in)
                 _normal_(p, math.sqrt(1.0 / p.shape[1]), generator)
-            elif isinstance(mod, (nn.BatchNorm2d, nn.GroupNorm, nn.LayerNorm)):
+            elif isinstance(mod, (nn.modules.batchnorm._BatchNorm,
+                                  nn.GroupNorm, nn.LayerNorm)):
                 p.fill_(1.0 if name == 'weight' else 0.0)
             elif isinstance(mod, PReLU):
                 p.fill_(0.25)
@@ -418,9 +427,11 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
             else:
                 raise ValueError(f'no initialiser for {type(mod).__name__}.{name}')
             done.add(id(p))
-        if isinstance(mod, nn.BatchNorm2d):
+        if isinstance(mod, nn.modules.batchnorm._BatchNorm):
             mod.running_mean.zero_()
             mod.running_var.fill_(1.0)
+        if hasattr(mod, 'init_buffers'):
+            mod.init_buffers(generator)
     missing = [n for n, p in module.named_parameters() if id(p) not in done]
     if missing:
         raise ValueError(f'parameters left uninitialised: {missing}')

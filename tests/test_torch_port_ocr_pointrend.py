@@ -386,14 +386,9 @@ def test_ocr_head_matches_jax(prev):
 
 
 def test_unported_options_raise():
-    from lednet_tpu_torch.models.decode_heads.ocr_head import SelfAttentionBlock
-    base = dict(key_in_channels=8, query_in_channels=8, channels=4,
-                out_channels=8, key_query_norm=True, value_out_norm=True)
-    for extra, word in ((dict(key_pool_scales=(1, 3)), 'key_pool_scales'),
-                        (dict(share_key_query=True), 'share_key_query'),
-                        (dict(key_query_norm=False), 'key_query_norm')):
-        with pytest.raises(NotImplementedError, match=word):
-            SelfAttentionBlock(**dict(base, **extra))
+    """OCRHead's ``scale``, PointHead's ``sampler`` and a cascade of one
+    stage raise (the general ``SelfAttentionBlock``, which raised outside
+    OCR's form before, is held in ``test_torch_port_context_heads.py``)."""
     with pytest.raises(NotImplementedError, match='scale'):
         MODELS.build(dict(type='OCRHead', in_channels=8, channels=8,
                           num_classes=3, scale=2))

@@ -691,7 +691,7 @@ def test_convert_dense_and_neck():
     np.testing.assert_array_equal(
         sd['backbone.level1_0.f_glo.fc1.weight'].numpy(), w.T)
     with pytest.raises(ValueError, match='2-D kernel'):
-        flax_to_state_dict({'_decode_head': {'theta': {'kernel': w}}})
+        flax_to_state_dict({'_decode_head': {'conv_mask': {'kernel': w}}})
     conv = np.zeros((3, 3, 2, 4), np.float32)
     sd = flax_to_state_dict({'_neck': {'cff_24': {'conv_low': {'conv': {
         'kernel': conv}}}}})

@@ -70,7 +70,12 @@ phase asked for (default 10):
   and PointRend-FPN R50 on the 1024x2048 frame; Segmenter, DPT and the
   MLN UPerNet on a 512x683 ADE20K frame), the train steps with the
   configs' drop rates active, four of them held to the CPU's, then
-  SETR-MLA, PointRend-FPN and Segmenter through the train and test CLIs.
+  SETR-MLA, PointRend-FPN and Segmenter through the train and test CLIs;
+- 22: ``chip_smoke.context_heads``: the ten R50-D8 context-head
+  ``_base_/models`` files composed with Cityscapes and the 80k schedule,
+  as 16 at full width on the 1024x2048 frame, three train steps (EMANet,
+  EncNet, DANet) held to the CPU's, EMANet through the train and test
+  CLIs, and NLHead and DNLHead as heads against their CPU copies.
 
 Exits non-zero if a phase fails or there is no GPU.
 """
@@ -88,7 +93,7 @@ def main() -> int:
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument('--phase', nargs='+',
                     choices=('10', '11', '12', '13', '14', '15', '16', '17',
-                             '18', '19', '20', '21'),
+                             '18', '19', '20', '21', '22'),
                     default=['10'])
     args = ap.parse_args()
     import torch
@@ -131,7 +136,9 @@ def main() -> int:
               '19': ('19 knet mask2former',
                      lambda tree: chip_smoke.knet_mask2former(card, tree)),
               '20': ('20 san', lambda tree: chip_smoke.san(card, tree)),
-              '21': ('21 vit fpn', lambda tree: chip_smoke.vit_fpn(card, tree))}
+              '21': ('21 vit fpn', lambda tree: chip_smoke.vit_fpn(card, tree)),
+              '22': ('22 context heads',
+                     lambda tree: chip_smoke.context_heads(card, tree))}
     try:
         with chip_smoke.zoo_tree() as tree:
             for key in args.phase:
